@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""On-card smoke run of gsplat_tpu_torch: build, check and time the kernels
-on the render path, then drive that path through its entry points.
+"""On-card smoke run of gsplat_tpu_torch: build, check and time the kernels,
+then drive the render path and the train path through their entry points.
 
     python3 chip_smoke.py
 
@@ -12,18 +12,37 @@ JSON line per phase:
 3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
-   tight_cull on and off and on an empty scene;
+   tight_cull on and off, on an empty scene, and with hybrid packets (rows
+   2-8 on the bf16 grid, mean2d and invz exact);
 4. K2' (sorted forward blend, `blend_fwd`) against its plain twin on that
    scene, with track_contrib on and off and at 200x120 (not a multiple of
    16): atol 2e-5 on rgb, invdepth and final_T, n_contrib exact;
-5. the main path at full width: 1,048,576 gaussians, SH 3, 1920x1080, float32
-   packets, through `render(..., device="cuda")` — 5 warm-up and 20 timed
-   frames with the launch counts reset just before and read just after; a
-   per-stage breakdown; each kernel's time against its plain twin, its bound
-   and its error on 64 seeded tiles of the frame;
-6. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
-7. the kernels line: one JSON object with every kernel's launches on the
-   main path, times, bound and error.
+5. K3' (blend backward, `blend_bwd`) against its plain twin on hybrid
+   packets of that scene at 640x480 and 200x120, with a seeded cotangent of
+   all five outputs and with NaN conic/opacity entries: per-row max relative
+   error below 1e-5;
+6. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
+   float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
+   timed frames with the launch counts reset just before and read just
+   after; a per-stage breakdown; each kernel's time against its plain twin,
+   its bound and its error;
+7. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
+8. the train path at full width: the same scene (noise on features_dc and
+   opacity, padded to 2x capacity with dead rows) trained toward the
+   unperturbed render through `make_train_step` with hybrid packets — 5
+   warm-up and 20 timed steps with the counts reset just before and read
+   just after (K1', K2', K3' and K4' once per step), the loss falling, no
+   NaN; a stage split, the busy share, peak memory; K3', K4' and the hybrid
+   pack against their twins at the train frame's shapes;
+9. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
+   pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
+   max relative error below 1e-5 (and K4' without pack_bf16 must miss the
+   rounded sum by more than that);
+10. one densify step and one opacity reset on the trained state;
+11. the train CLI (30 iterations, densification forced early) and the render
+   CLI on the model it saved;
+12. the kernels line: one JSON object with every kernel's launches on each
+   path, times, bound and error.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -60,6 +79,7 @@ CLI = dict(size=800, n=200_000)
 WARMUP, TIMED = 5, 20
 CHECK_TILES = 64
 ATOL = 2e-5
+ROW_REL = 1e-5
 
 
 class CheckFailed(RuntimeError):
@@ -161,9 +181,69 @@ def device_profile(frame, frames=3, top=10):
     }
 
 
-def reset_counts(*wrappers):
-    for w in wrappers:
+def all_kernels():
+    """The wrappers whose launches the script counts, by kernel row name."""
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import reduce as rd
+
+    return {"expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
+            "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
+            "reduce_by_gid": rd.reduce_by_gid_cuda}
+
+
+def reset_counts():
+    kernels = all_kernels()
+    for w in kernels.values():
         w.launches = 0
+    kernels["pack_instances"].launches_hybrid = 0
+
+
+def read_counts():
+    """Launches since `reset_counts`, one entry per kernel row: the pack
+    wrapper's two counters, read together, split its launches into float32
+    packets (`pack_instances`) and hybrid ones (`pack_instances_hybrid`)."""
+    kernels = all_kernels()
+    counts = {name: w.launches for name, w in kernels.items()}
+    hybrid = kernels["pack_instances"].launches_hybrid
+    counts["pack_instances"] -= hybrid
+    counts["pack_instances_hybrid"] = hybrid
+    return counts
+
+
+# the kernels each path launches once per frame or step: serving packs
+# float32 packets and has no backward; training packs hybrid ones
+RENDER_KERNELS = ("expand_instances", "pack_instances", "blend_fwd")
+TRAIN_KERNELS = ("expand_instances", "pack_instances_hybrid", "blend_fwd", "blend_bwd",
+                 "reduce_by_gid")
+
+
+def check_counts(counts, path_kernels, n, what):
+    """Each kernel of the path launched `n` times, every other kernel none."""
+    for name, got in counts.items():
+        want = n if name in path_kernels else 0
+        check(got == want, f"{what}: {name} launched {got} times, want {want}")
+
+
+def bound(nbytes, ops=0):
+    """Least time for the work: bytes read once + written once at the HBM
+    rate, or the run's float32 operations at the FP32 rate, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pack_bound_of(k, live, num_tiles):
+    # pack: key 8 + perm 8 + gid 4 per instance and 40 B of columns per live
+    # gaussian (the only ones an instance points at) in; 16 table rows +
+    # gauss_id + tile_id per instance and the T+1 bounds out
+    return bound(k * 20 + live * 40 + k * (64 + 8) + (num_tiles + 1) * 4)
+
+
+def measured(ms, plain_ms, bnd, err, rel_err, library_ms=None, **extra):
+    """A kernel's numbers: `rel_err` is max |kernel - plain| / max |plain|."""
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "max_abs_err": err, "max_rel_err": rel_err, "library_ms": library_ms, **extra}
 
 
 def screen_of(scene, settings, device):
@@ -175,26 +255,41 @@ def screen_of(scene, settings, device):
     return preprocess(params, alive, camera, settings, gx, gy), gx, gy
 
 
+def bitwise_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_binning(device):
-    """K1' vs pack_bins_torch: exact equality."""
+    """K1' vs pack_bins_torch: exact equality, float32 and hybrid packets."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.synthetic import tiny_scene
 
     scene = tiny_scene(**SCENE, device=device)
     cases = []
-    for name, tight, alive in (("tight_cull", True, None), ("rect", False, None),
-                               ("empty", True, torch.zeros_like(scene[1]))):
+    for name, tight, alive, packets in (
+            ("tight_cull", True, None, "float32"), ("rect", False, None, "float32"),
+            ("empty", True, torch.zeros_like(scene[1]), "float32"),
+            ("tight_cull_hybrid", True, None, "hybrid"), ("rect_hybrid", False, None, "hybrid")):
         sc = scene if alive is None else (scene[0], alive, scene[2])
         screen, gx, gy = screen_of(sc, make_render_settings(sh_degree=3, tight_cull=tight), device)
-        kb = tb.pack_bins(screen, gx, gy, 16, tight)
-        pb = tb.pack_bins_torch(screen, gx, gy, 16, tight)
+        kb = tb.pack_bins(screen, gx, gy, 16, tight, packet_dtype=packets)
+        pb = tb.pack_bins_torch(screen, gx, gy, 16, tight, packet_dtype=packets)
         check(kb.num_instances == pb.num_instances, f"{name}: instance count")
         for f in ("tile_start", "tile_end", "gauss_id", "tile_id"):
             check(torch.equal(getattr(kb, f), getattr(pb, f)), f"{name}: {f} differs")
-        check(torch.equal(kb.inst_t, pb.inst_t), f"{name}: inst_t not bitwise equal")
+        check(bitwise_equal(kb.inst_t, pb.inst_t), f"{name}: inst_t not bitwise equal")
         check(name != "empty" or kb.num_instances == 0, "empty scene emits instances")
-        cases.append({"case": name, "instances": kb.num_instances})
+        case = {"case": name, "instances": kb.num_instances}
+        if packets == "hybrid":
+            # positions and invz exact; conic, opacity and rgb on the bf16 grid
+            f32 = tb.pack_bins(screen, gx, gy, 16, tight)
+            for r in (0, 1, 9):
+                check(bitwise_equal(kb.inst_t[r], f32.inst_t[r]), f"{name}: row {r} not exact")
+            vals = kb.inst_t[2:9]
+            check(bitwise_equal(vals, tb.round_bf16(vals)), f"{name}: rows 2-8 not bf16")
+            case["rows_rounded"] = int((vals != f32.inst_t[2:9]).sum())
+        cases.append(case)
     return cases
 
 
@@ -245,6 +340,79 @@ def phase_blend(device):
     return cases
 
 
+def per_row_rel_err(a, b):
+    """max over rows of max|a - b| / max|b| (a row that is 0 in b must be
+    0 in a)."""
+    worst = 0.0
+    for r in range(b.shape[0]):
+        den = float(b[r].abs().max()) if b.shape[1] else 0.0
+        num = float((a[r] - b[r]).abs().max()) if b.shape[1] else 0.0
+        worst = max(worst, num / den if den > 0 else (0.0 if num == 0 else float("inf")))
+    return worst
+
+
+def phase_blend_bwd(device):
+    """K3' vs blend_bwd_packed_torch: per-row max relative error < 1e-5, on
+    hybrid packets (the training mode) with a seeded cotangent of all five
+    outputs, and on a table with NaN conic and opacity entries."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    cases = []
+    for w, h in ((SCENE["width"], SCENE["height"]), (200, 120)):
+        scene = tiny_scene(**{**SCENE, "width": w, "height": h}, device=device)
+        screen, gx, gy = screen_of(scene, make_render_settings(sh_degree=3), device)
+        pb = tb.pack_bins(screen, gx, gy, packet_dtype="hybrid")
+        gen = torch.Generator(device=device).manual_seed(7)
+        dout = torch.zeros((gx * gy, 256, 8), device=device)
+        dout[..., :5] = torch.randn((gx * gy, 256, 5), generator=gen, device=device)
+        nan_t = pb.inst_t.clone()
+        nan_t[2, ::7] = float("nan")
+        nan_t[5, 3::11] = float("nan")
+        for label, table in (("hybrid", pb.inst_t), ("nan_rows", nan_t)):
+            args = (table, pb.tile_start, pb.tile_end, gx, gy)
+            fwd = rc.blend_fwd(*args)
+            got = rc.blend_bwd(*args, fwd, dout)
+            want = rc.blend_bwd_packed_torch(*args, fwd, dout)
+            check(bool(torch.isfinite(got).all()), f"K3' {w}x{h} {label}: non-finite rows")
+            err = per_row_rel_err(got, want)
+            check(err < ROW_REL, f"K3' {w}x{h} {label}: per-row max rel err {err}")
+            cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
+                          "max_rel_err": err,
+                          "max_abs_err": float((got - want).abs().max())})
+    return cases
+
+
+def reduce_errors(dinst, gid, n):
+    """K4' held as K3' is, per row: max |K4' - want| / max |want| below
+    1e-5 on all 16 rows (rows 10-15 must be exactly 0), against
+    - reduce_by_gid_torch (index_add_), pack_bf16 off and on;
+    - index_add_ of the rows rounded to bf16 beforehand, which K4' with
+      pack_bf16 must meet and K4' without it must miss by more than the
+      tolerance: so a K4' that ignored pack_bf16 fails here.
+    Returns the largest abs error, the largest per-row relative one, and
+    how far the unrounded sum misses the rounded reference."""
+    from gsplat_tpu_torch.ops import reduce as rd
+
+    rounded = torch.zeros((rd.N_ROWS, n), dtype=torch.float32, device=dinst.device)
+    rounded[:rd.N_GRAD].index_add_(1, gid.long(), dinst[:rd.N_GRAD].to(torch.bfloat16).float())
+    got = {pack: rd.reduce_by_gid_cuda(dinst, gid, n, pack) for pack in (False, True)}
+    err = rel = 0.0
+    for label, a, want in (("pack_bf16=False", got[False], rd.reduce_by_gid_torch(dinst, gid, n)),
+                           ("pack_bf16=True", got[True],
+                            rd.reduce_by_gid_torch(dinst, gid, n, True)),
+                           ("bf16-rounded rows", got[True], rounded)):
+        r = per_row_rel_err(a, want)
+        check(r < ROW_REL, f"K4' {label}: per-row max rel err {r}")
+        err, rel = max(err, float((a - want).abs().max())), max(rel, r)
+    miss = per_row_rel_err(got[False], rounded)
+    check(miss > ROW_REL, f"K4' without pack_bf16 meets the bf16-rounded sum ({miss}): "
+          "the data cannot tell whether K4' rounds")
+    return err, rel, miss
+
+
 def phase_main_path(device):
     """The full-width render through `render`, then per-kernel measurements."""
     from gsplat_tpu_torch.core.types import make_render_settings
@@ -259,10 +427,9 @@ def phase_main_path(device):
     settings = make_render_settings(sh_degree=3, packet_dtype="float32")
     bg = [0.0, 0.0, 0.0]
     setup_s = time.perf_counter() - t0
-    kernels = (tb.expand_instances, tb.pack_instances, rc.blend_fwd)
 
-    # --- the main path: counts reset just before, read just after
-    reset_counts(*kernels)
+    # --- the render path: counts reset just before, read just after
+    reset_counts()
     frame_ms = []
     for i in range(WARMUP + TIMED):
         torch.cuda.synchronize()
@@ -271,10 +438,8 @@ def phase_main_path(device):
         torch.cuda.synchronize()
         if i >= WARMUP:
             frame_ms.append((time.perf_counter() - t) * 1e3)
-    launches = {w.__name__: w.launches for w in kernels}
-    frames = WARMUP + TIMED
-    for name, n in launches.items():
-        check(n == frames, f"{name} launched {n} times over {frames} frames")
+    launches = read_counts()
+    check_counts(launches, RENDER_KERNELS, WARMUP + TIMED, "render path")
     img = out["render"]
     check(img.shape == (FULL["height"], FULL["width"], 3), "image shape")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
@@ -330,6 +495,7 @@ def phase_main_path(device):
     blend_err, n_equal = blend_errors(blended[sel], plain_blend[sel])
     check(blend_err <= ATOL and n_equal, f"K2' on 64 frame tiles: max abs err {blend_err}")
     full_err, _ = blend_errors(blended, plain_blend)
+    blend_rel = blend_err / float(plain_blend[sel][..., :5].abs().max())
 
     # --- K1' against its plain twins at the frame's shapes
     exp_args = (*tables[:5], screen.depth, k, gx, True)
@@ -349,13 +515,6 @@ def phase_main_path(device):
     blend_ms = cuda_time(lambda: rc.blend_fwd(*blend_args), 20)
     sort_ms = cuda_time(lambda: torch.sort(keys, stable=True), 20)
 
-    # --- bounds: bytes read once + written once at the HBM rate, or the
-    # run's float32 operations at the FP32 rate, whichever is larger
-    def bound(nbytes, ops=0):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     # what this run's data needs the binning kernels to read: every gaussian's
     # tile count; the rest of the rect, cum_excl, depth and the trimmed flag
     # only for live rows (count > 0); cum_run (all 8 rows) only for trimmed
@@ -369,28 +528,16 @@ def phase_main_path(device):
     # expand: key 8 + gid 4 per instance out
     exp_bound = bound(n * 4 + live * (12 + 8 + 4 + 1) + trimmed_live * 32 + run_rows * 4
                       + k * 12)
-    # pack: key 8 + perm 8 + gid 4 per instance and 40 B of columns per live
-    # gaussian (the only ones an instance points at) in; 16 table rows +
-    # gauss_id + tile_id per instance and the T+1 bounds out
-    pack_bound = bound(k * 20 + live * 40 + k * (64 + 8) + (num_tiles + 1) * 4)
+    pack_bound = pack_bound_of(k, live, num_tiles)
     # blend: 10 table rows per instance + 2 ranges per tile in; (T, 256, 8) out
     blend_bound = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 32, pairs * BLEND_OPS_PER_PAIR)
 
-    def row(name, source, replaces, ms, plain_ms, bnd, err):
-        return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-        }
-
-    rows = [
-        row("expand_instances", "gsplat_tpu_torch/csrc/binning.cu",
-            "gsplat_tpu/ops/binning.py:485", exp_ms, exp_plain_ms, exp_bound, exp_err),
-        row("pack_instances", "gsplat_tpu_torch/csrc/binning.cu",
-            "gsplat_tpu/ops/binning.py:485", pack_ms, pack_plain_ms, pack_bound, pack_err),
-        row("blend_fwd", "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
-            "gsplat_tpu/ops/rasterize_pallas.py:368", blend_ms, blend_plain_ms, blend_bound, blend_err),
-    ]
+    rows = {
+        # K1' is checked bit for bit (its errors are 0, so relative ones too)
+        "expand_instances": measured(exp_ms, exp_plain_ms, exp_bound, exp_err, exp_err),
+        "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err),
+        "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel),
+    }
     summary = {
         "gaussians": n, "size": f"{FULL['width']}x{FULL['height']}", "instances": k,
         "live_gaussians": live, "trimmed_live_gaussians": trimmed_live,
@@ -451,15 +598,12 @@ def phase_cli():
     from PIL import Image
 
     from gsplat_tpu_torch.cli import render as cli
-    from gsplat_tpu_torch.ops import binning as tb
-    from gsplat_tpu_torch.ops import rasterize_cuda as rc
 
-    kernels = (tb.expand_instances, tb.pack_instances, rc.blend_fwd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         src, model = write_blender_scene(Path(tmp), **CLI)
-        reset_counts(*kernels)
+        reset_counts()
         rc_ = cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet"])
-        launches = {w.__name__: w.launches for w in kernels}
+        launches = read_counts()
         check(rc_ == 0, "render CLI returned non-zero")
         out = model / "train" / "ours_30000" / "renders"
         pngs = sorted(out.iterdir())
@@ -467,9 +611,348 @@ def phase_cli():
         for p in pngs:
             a = np.asarray(Image.open(p))
             check(a.shape == (CLI["size"], CLI["size"], 3) and a.std() > 1.0, f"{p.name}: bad image")
-        for name, n in launches.items():
-            check(n == 3, f"CLI: {name} launched {n} times for 3 views")
+        check_counts(launches, RENDER_KERNELS, 3, "render CLI, 3 views")
     return {"views": 3, "launches": launches}
+
+
+# float32 operations every blended (pixel, instance) pair of K3' adds for its
+# gradient terms: the cotangent dot (7), w and the prefix (3), suffix and
+# 1/(1 - alpha) (3), dalpha (4), dgm (2), the ten row terms (26)
+BWD_OPS_PER_BLENDED = 45
+TRAIN_CAPACITY = 2 * FULL["n"]  # dead-row padding as `init_from_pcd` pads
+CLI_ITERS = 30
+
+
+def pad_rows(params, alive, capacity):
+    """The scene's rows padded with dead rows to `capacity`, as
+    `model.init_from_pcd` leaves room for densification."""
+    from gsplat_tpu_torch.train.densify import sanitize_dead_rows
+
+    pad = capacity - alive.shape[0]
+    params = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))]) for k, v in params.items()}
+    alive = torch.cat([alive, alive.new_zeros(pad)])
+    return sanitize_dead_rows(params, alive), alive
+
+
+class StageMarks:
+    """CUDA events recorded around functions the train step calls, by
+    swapping each module attribute for a recording wrapper while active.
+    Each wrapper also keeps the arguments of its last call. Used only to
+    split and to capture, never on the counted run."""
+
+    def __init__(self, patches):
+        self.patches = patches  # (module, attribute, mark before, mark after)
+        self.events, self.args, self._saved = {}, {}, []
+
+    def mark(self, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events[name] = e
+
+    def __enter__(self):
+        for mod, attr, before, after in self.patches:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _attr=attr, _b=before, _e=after, **kw):
+                if _b:
+                    self.mark(_b)
+                out = _fn(*a, **kw)
+                if _e:
+                    self.mark(_e)
+                self.args[_attr] = a
+                return out
+
+            # a kernel wrapper counts through its module-global name, so
+            # while swapped in its counters land on this stand-in
+            wrapped.__dict__.update({c: 0 for c in vars(fn) if c.startswith("launches")})
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+
+    def ms(self, a, b):
+        return self.events[a].elapsed_time(self.events[b])
+
+
+def phase_train(device):
+    """The train path at full width: the flagship scene through
+    `make_train_step` in hybrid mode; then the stage split, the busy share,
+    and K3', K4' and the hybrid K1' pack at the train frame's shapes."""
+    from gsplat_tpu_torch.config import OptimizationConfig
+    from gsplat_tpu_torch.convert import PARAM_FIELDS
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import reduce as rd
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+    from gsplat_tpu_torch.train import losses
+    from gsplat_tpu_torch.train import step as ts
+
+    t0 = time.perf_counter()
+    module, alive0, camera = tiny_scene(**FULL, device=device)
+    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid")
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():  # the target: the unperturbed scene's render
+        target = render(camera, module, alive0, settings, bg, device=DEVICE)["render"]
+    params = {k: getattr(module, k).detach().clone() for k in PARAM_FIELDS}
+    del module
+    gen = torch.Generator(device=device).manual_seed(1)
+    for k, sigma in (("features_dc", 0.3), ("opacity", 0.5)):
+        params[k] += sigma * torch.randn(params[k].shape, generator=gen, device=device)
+    params, alive = pad_rows(params, alive0, TRAIN_CAPACITY)
+    state = ts.init_train_state(params, alive, num_images=1, seed=0)
+    opt = OptimizationConfig()
+    step = ts.make_train_step(opt, settings)
+    h, w = FULL["height"], FULL["width"]
+    zeros = torch.zeros((h, w), device=device)
+    args = (camera, target, torch.ones((h, w, 1), device=device), zeros, zeros, bg,
+            opt.position_lr_init, opt.exposure_lr_init, 0.0, 0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # --- the train path: counts reset just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, loss = [], []
+    for i in range(WARMUP + TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, *args)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        loss.append(float(metrics["loss"]))
+    launches = read_counts()
+    check_counts(launches, TRAIN_KERNELS, WARMUP + TIMED, "train path")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
+    check(loss[-1] < loss[0], f"loss did not fall: {loss[0]} -> {loss[-1]}")
+    for k, v in state.params.items():
+        check(not bool(torch.isnan(v).any()), f"NaN in {k} after training")
+    check(torch.equal(state.alive, alive), "alive changed in train steps")
+
+    # --- device busy share over 3 profiled steps (counts already read)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step)
+    state = holder[0]
+
+    # --- stage split, and the inputs K3', K4' and the pack get in a step
+    marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
+                        (rc, "blend_bwd", "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
+                        (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None)])
+    spans = (("forward", "fwd0", "fwd1"), ("loss", "fwd1", "loss1"),
+             ("loss_backward", "loss1", "k3_0"), ("K3_blend_bwd", "k3_0", "k3_1"),
+             ("K4_reduce", "k3_1", "k4_1"),
+             ("preprocess_backward_and_stats", "k4_1", "adam0"), ("adam", "adam0", "adam1"),
+             ("dead_row_freeze", "adam1", "end"))
+    stage_ms = {name: [] for name, _, _ in spans}
+    with marks:
+        for i in range(WARMUP + TIMED):
+            marks.events.clear()
+            state, _ = step(state, *args)
+            marks.mark("end")
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                for name, a, b in spans:
+                    stage_ms[name].append(marks.ms(a, b))
+    k3_args, k4_args, pack_args = (marks.args[a] for a in (
+        "blend_bwd", "reduce_by_gid_cuda", "pack_instances"))
+    summary = {
+        "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
+        "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
+        "setup_s": setup_s, "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "loss_first": loss[0], "loss_last": loss[-1],
+        "stage_ms_median": {k: statistics.median(v) for k, v in stage_ms.items()},
+        "device_profile": profile, "launches": launches, "peak_mem_gib": peak_gib,
+        "instances": int(k3_args[0].shape[1]),
+    }
+    with torch.no_grad():  # the saved forward output carries requires_grad
+        rows = kernel_rows_train(k3_args, k4_args, pack_args)
+    return summary, state, rows
+
+
+def kernel_rows_train(k3_args, k4_args, pack_args):
+    """K3', K4' and the hybrid K1' pack on the inputs one train step gave
+    them: time, plain twin time, error and bound."""
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import reduce as rd
+
+    # K3' against its twin on the whole frame; the twin's one call is timed
+    # and counts the pairs the bound needs
+    inst_t, starts, ends, gx, gy, fwd, dout = k3_args
+    k, num_tiles = inst_t.shape[1], gx * gy
+    got = rc.blend_bwd(*k3_args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want, evaluated, blended = rc.blend_bwd_packed_torch(*k3_args, count_pairs=True)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t) * 1e3
+    k3_rel = per_row_rel_err(got, want)
+    check(k3_rel < ROW_REL, f"K3' on the train frame: per-row max rel err {k3_rel}")
+    k3_ms = cuda_time(lambda: rc.blend_bwd(*k3_args), 20)
+    # K3': 10 table rows per instance + 2 ranges per tile + the forward
+    # output and its cotangent (T, 256, 8) each in; 10 rows per instance out.
+    # Operations: the forward's 11 per evaluated pair + 45 per blended pair
+    k3_bound = bound(k * 40 + num_tiles * 8 + 2 * num_tiles * 256 * 32 + k * 40,
+                     evaluated * BLEND_OPS_PER_PAIR + blended * BWD_OPS_PER_BLENDED)
+
+    # K4' (hybrid: pack_bf16) against index_add_, off and on
+    dinst, gid, n, pack = k4_args
+    check(pack is True, "the hybrid train step must reduce with pack_bf16")
+    k4_err, k4_rel, k4_miss = reduce_errors(dinst, gid, n)
+    k4_ms = cuda_time(lambda: rd.reduce_by_gid_cuda(dinst, gid, n, True), 20)
+    k4_plain_ms = cuda_time(lambda: rd.reduce_by_gid_torch(dinst, gid, n, True), 20)
+    # library: one index_add_ of the same (already rounded) rows into a fresh
+    # zeroed output, as K4' zeroes its own
+    rows10, gid_l = tb.round_bf16(dinst[:10]), gid.long()
+    lib_ms = cuda_time(lambda: torch.zeros((16, n), device=dinst.device)[:10].index_add_(
+        1, gid_l, rows10), 20)
+    # K4': 10 rows + gid per instance in; 10 x N floats out; 10 adds per instance
+    k4_bound = bound(k * (40 + 4) + n * 40, 10 * k)
+
+    # the hybrid pack at the train frame against its twin, bit for bit
+    keys_sorted, perm, kgid, screen, pt = pack_args[:5]
+    check(pack_args[5] is True, "the train step packs hybrid instances")
+    outs = tb.pack_instances(*pack_args)
+    pack_err = max_abs_diff("pack_instances (hybrid)", ("inst_t", "gauss_id", "tile_id", "bounds"),
+                            outs, tb._pack_instances_torch(*pack_args))
+    pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
+    pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
+    live = int(torch.unique(kgid).numel())
+
+    return {
+        "pack_instances_hybrid": measured(pack_ms, pack_plain_ms,
+                                          pack_bound_of(keys_sorted.shape[0], live, pt),
+                                          pack_err, pack_err),
+        # K3': the largest per-row relative error (the check's measure)
+        "blend_bwd": measured(k3_ms, k3_plain_ms, k3_bound, float((got - want).abs().max()),
+                              k3_rel, evaluated_pairs=evaluated, blended_pairs=blended),
+        "reduce_by_gid": measured(k4_ms, k4_plain_ms, k4_bound, k4_err, k4_rel,
+                                  library_ms=lib_ms, unrounded_rel_miss=k4_miss),
+    }
+
+
+def phase_densify(state):
+    """One densify step and one opacity reset on the trained state: the
+    alive count changes as the masks say, nothing is NaN. The grad threshold
+    is the 99th percentile of the state's mean gradients (so about 1% of
+    the live rows are hot), the extent 1.0 (so 0.01 splits the scene's
+    0.002-0.012 scales into clones and splits)."""
+    from gsplat_tpu_torch.config import OptimizationConfig
+    from gsplat_tpu_torch.core import activations as act
+    from gsplat_tpu_torch.train import step as ts
+
+    st = state.stats
+    mean_grad = st["grad_accum"] / torch.clamp(st["denom"], min=1.0)
+    thr = float(torch.quantile(mean_grad[state.alive & (st["denom"] > 0)], 0.99))
+    before = int(state.alive.sum())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    new, info = ts.make_densify_step(OptimizationConfig(densify_grad_threshold=thr))(
+        state, 1.0, 0)
+    reset = ts.opacity_reset_step(new)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    check(info["n_cloned"] > 0 and info["n_split"] > 0, f"densify made no clones or splits: {info}")
+    want = (before - info["n_pruned"] - info["n_split"]
+            + info["n_cloned"] + 2 * info["n_split"] - info["n_dropped"])
+    check(info["n_alive"] == want == int(new.alive.sum()),
+          f"alive {info['n_alive']} after densify, the masks say {want}")
+    for k, v in reset.params.items():
+        check(not bool(torch.isnan(v).any()), f"NaN in {k} after densify + reset")
+    op = act.opacity_activation(reset.params["opacity"])[reset.alive]
+    check(float(op.max()) <= 0.01 + 1e-6, "opacity reset left an opacity above 0.01")
+    check(not bool(reset.adam_m["opacity"].any()), "opacity reset kept Adam moments")
+    return {"grad_threshold": thr, "alive_before": before, **info, "ms": ms}
+
+
+def phase_train_cli():
+    """The train CLI on a seeded 3-view Blender scene (densification forced
+    into the first iterations), then the render CLI on the saved model;
+    counts reset just before each and read just after."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.cli import render as render_cli
+    from gsplat_tpu_torch.cli import train as train_cli
+    from gsplat_tpu_torch.io.snapshot import load_snapshot
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        src, _ = write_blender_scene(Path(tmp), size=CLI["size"], n=1000)
+        model = Path(tmp) / "trained"
+        reset_counts()
+        t = time.perf_counter()
+        rc_ = train_cli.main([
+            "-s", str(src), "-m", str(model), "--iterations", str(CLI_ITERS),
+            "--densify_from_iter", "5", "--densification_interval", "10",
+            "--densify_until_iter", str(CLI_ITERS), "--opacity_reset_interval", "20",
+            "--densify_grad_threshold", "1e-7", "--device", DEVICE, "--quiet",
+            "--disable_viewer"])
+        train_s = time.perf_counter() - t
+        train_launches = read_counts()
+        check(rc_ == 0, "train CLI returned non-zero")
+        check_counts(train_launches, TRAIN_KERNELS, CLI_ITERS, f"train CLI, {CLI_ITERS} iterations")
+        _, alive, it, _ = load_snapshot(str(model), device=DEVICE)
+        n_saved = int(alive.sum())
+        check(it == CLI_ITERS and n_saved > 100_000, f"saved snapshot: iteration {it}, {n_saved} rows")
+
+        reset_counts()
+        rc_ = render_cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet"])
+        render_launches = read_counts()
+        check(rc_ == 0, "render CLI returned non-zero on the trained model")
+        pngs = sorted((model / "train" / f"ours_{CLI_ITERS}" / "renders").iterdir())
+        check(len(pngs) == 3, f"render CLI wrote {len(pngs)} PNGs of the trained model, want 3")
+        # the Blender reader's random init is near-uniform gray (colors
+        # 0.5 + U(0, 1/255) in SH), so a trained view is a gray cloud over
+        # the black background: check the shape and that it is not blank
+        stds = []
+        for p in pngs:
+            a = np.asarray(Image.open(p))
+            stds.append(float(a.std()))
+            check(a.shape == (CLI["size"], CLI["size"], 3) and a.max() > a.min() and a.max() > 0,
+                  f"{p.name}: blank or misshapen image of the trained model")
+        check_counts(render_launches, RENDER_KERNELS, 3, "render CLI on the trained model")
+    return {"iterations": CLI_ITERS, "train_s": train_s, "saved_gaussians": n_saved,
+            "render_std": stds, "train_launches": train_launches,
+            "render_launches": render_launches}
+
+
+KERNEL_ROWS = (
+    # (row, path whose count is `launches`, source, TPU kernel)
+    ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
+     "gsplat_tpu/ops/binning.py:485"),
+    ("pack_instances", "render", "gsplat_tpu_torch/csrc/binning.cu",
+     "gsplat_tpu/ops/binning.py:485"),
+    ("pack_instances_hybrid", "train", "gsplat_tpu_torch/csrc/binning.cu",
+     "gsplat_tpu/ops/binning.py:485"),
+    ("blend_fwd", "train", "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
+     "gsplat_tpu/ops/rasterize_pallas.py:368"),
+    ("blend_bwd", "train", "gsplat_tpu_torch/csrc/rasterize_bwd.cu",
+     "gsplat_tpu/ops/rasterize_pallas.py:605"),
+    ("reduce_by_gid", "train", "gsplat_tpu_torch/csrc/reduce.cu",
+     "gsplat_tpu/ops/reduce.py:50"),
+)
+
+
+def kernels_line(measures, launches_by_path):
+    """One row per kernel: `launches` is the count `read_counts` took on
+    the path named in KERNEL_ROWS (the train path is this slice's main
+    path; float32 packets are packed on the render path), with every
+    path's count beside it."""
+    rows = []
+    for name, path, source, replaces in KERNEL_ROWS:
+        by_path = {p: counts[name] for p, counts in launches_by_path.items()}
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": by_path[path], "launches_by_path": by_path, **measures[name]})
+    return rows
 
 
 def main() -> int:
@@ -494,13 +977,31 @@ def main() -> int:
         t = time.perf_counter()
         emit(phase="k2_vs_plain", cases=phase_blend(device), seconds=time.perf_counter() - t)
         t = time.perf_counter()
-        summary, rows = phase_main_path(device)
-        emit(phase="main_path", **summary, seconds=time.perf_counter() - t)
+        emit(phase="k3_vs_plain", cases=phase_blend_bwd(device), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        render_summary, measures = phase_main_path(device)
+        emit(phase="render_path", **render_summary, seconds=time.perf_counter() - t)
         t = time.perf_counter()
         emit(phase="render_cli", **phase_cli(), seconds=time.perf_counter() - t)
 
+    t = time.perf_counter()
+    train_summary, state, train_measures = phase_train(device)
+    emit(phase="train_path", **train_summary, seconds=time.perf_counter() - t)
+    measures.update(train_measures)
+    k4 = measures["reduce_by_gid"]
+    emit(phase="k4_vs_plain", pack_bf16=[False, True], max_abs_err=k4["max_abs_err"],
+         max_rel_err=k4["max_rel_err"], unrounded_rel_miss=k4["unrounded_rel_miss"],
+         instances=train_summary["instances"], gaussians=TRAIN_CAPACITY)
+    t = time.perf_counter()
+    emit(phase="densify", **phase_densify(state), seconds=time.perf_counter() - t)
+    del state
+    t = time.perf_counter()
+    emit(phase="train_cli", **phase_train_cli(), seconds=time.perf_counter() - t)
+
+    rows = kernels_line(measures, {"train": train_summary["launches"],
+                                   "render": render_summary["launches"]})
     for r in rows:
-        check(r["launches"] > 0, f"{r['name']} never launched on the main path")
+        check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ import: the first `load(name)` builds (or finds) the library, so importing
 the package needs neither `nvcc` nor a GPU. `build_all()` starts one `nvcc`
 per source at once and waits for all of them.
 
-Libraries go to `gsplat_tpu_torch/_build/`, named by a hash of the source
-and the flags, so an edited source is rebuilt and a stale one never loaded.
+Libraries go to `gsplat_tpu_torch/_build/`, named by a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source is
+rebuilt and a stale one never loaded.
 
 Flags: `-fmad=false`, never `--use_fast_math`. The blend's keep rule
 (alpha >= 1/255) and the binning's bit-equality with the JAX package hang on
@@ -30,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binning", "rasterize_fwd")
+SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,10 +44,16 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "binning": {
         "gs_expand_instances": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-        "gs_pack_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P),
+        "gs_pack_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P),
     },
     "rasterize_fwd": {
         "gs_blend_fwd": (_P, _LL, _P, _P, _I, _I, _I, _P, _P),
+    },
+    "rasterize_bwd": {
+        "gs_blend_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P),
+    },
+    "reduce": {
+        "gs_reduce_by_gid": (_P, _P, _LL, _LL, _I, _I, _P, _P),
     },
 }
 
@@ -66,7 +73,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Build output for `csrc/<name>.cu`, keyed by its source, every shared
+    header under `csrc/` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

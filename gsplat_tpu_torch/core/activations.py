@@ -1,7 +1,8 @@
 """Parameter activations and the quaternion -> covariance helper.
 
 Counterpart of `gsplat_tpu/core/activations.py`: wxyz quaternions normalized
-by the activation, exponentiated log-scales, sigmoided logit opacities.
+by the activation, exponentiated log-scales, sigmoided logit opacities, and
+their inverses for initialisation and densification.
 """
 
 from __future__ import annotations
@@ -13,14 +14,44 @@ def scaling_activation(s):
     return torch.exp(s)
 
 
+def scaling_inverse_activation(s):
+    return torch.log(s)
+
+
 def opacity_activation(o):
     return torch.sigmoid(o)
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1.0 - x))
 
 
 def normalize_rotation(q, eps: float = 0.0):
     """Unit-normalize quaternions (wxyz), last axis."""
     norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps)
     return q / norm
+
+
+def quat_to_rotmat(q):
+    """Quaternion (..., 4) wxyz -> rotation matrix (..., 3, 3), normalized
+    here (reference `build_rotation`, `utils/general_utils.py:78-99`)."""
+    q = normalize_rotation(q)
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack(
+        [
+            1 - 2 * (y * y + z * z),
+            2 * (x * y - r * z),
+            2 * (x * z + r * y),
+            2 * (x * y + r * z),
+            1 - 2 * (x * x + z * z),
+            2 * (y * z - r * x),
+            2 * (x * z - r * y),
+            2 * (y * z + r * x),
+            1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return R.reshape(q.shape[:-1] + (3, 3))
 
 
 def covariance_from_scaling_rotation(scales, scale_modifier, quats):

@@ -106,3 +106,8 @@ def eval_sh_color(degree: int, sh_coeffs, dirs):
 
 def sh_to_rgb(sh):
     return sh * SH_C0 + 0.5
+
+
+def rgb_to_sh(rgb):
+    """Inverse of band-0 SH: point-cloud color init (`sh_utils.py:114`)."""
+    return (rgb - 0.5) / SH_C0

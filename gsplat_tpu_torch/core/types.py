@@ -96,7 +96,9 @@ class RenderSettings:
     antialiasing: bool = False
     sh_degree: int = 3
     backend: str = "jnp"
-    # "float32" only in this slice; "hybrid" and "bfloat16" packets come later
+    # "float32" (parity) | "hybrid" (conic, opacity, rgb rows and the
+    # backward's gradient rows rounded to bf16; positions and invz exact);
+    # all-bf16 packets are not ported
     packet_dtype: str = "float32"
     # drop (gaussian, tile) instances whose max alpha over the tile is
     # provably < 1/255 (see ops/binning.compute_row_runs)

@@ -21,6 +21,12 @@
 //                        columns into the (16, K) float32 instance table
 //                        (conic pre-folded to [-a/2, -b, -c/2], invz =
 //                        1/max(depth, 0.2)) and writes the tile boundaries.
+//                        With `hybrid` (the training default packet mode,
+//                        binning.py:737-795) the folded conic, opacity and
+//                        rgb rows 2-8 are rounded to bf16 (nearest even)
+//                        and stored as float32, after the fold, as the JAX
+//                        package's bf16 pair packing leaves them; mean2d
+//                        and invz stay exact.
 //
 // Bound on the card: bytes. Both kernels do a few integer operations per
 // byte they move. Expand writes 12 bytes per instance with neighbouring
@@ -31,11 +37,12 @@
 // columns of 1M gaussians are 40 MB); its 16-row table stores are coalesced.
 //
 // Every value is copied or computed with exact integer or IEEE float32
-// operations (built with -fmad=false), so the result equals the JAX
-// package's bit for bit.
+// operations (built with -fmad=false), and rounded to bf16 the one way the
+// JAX package rounds, so the result equals the JAX package's bit for bit.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -102,7 +109,7 @@ __global__ void pack_instances_kernel(
     const float* __restrict__ opacity,          // (N,)
     const float* __restrict__ rgb,              // (N, 3)
     const float* __restrict__ depth,            // (N,)
-    long long k, int num_tiles,
+    long long k, int num_tiles, int hybrid,
     float* __restrict__ inst_t,                 // (16, K)
     int* __restrict__ gauss_id,                 // (K,)
     int* __restrict__ tile_id,                  // (K,)
@@ -126,13 +133,13 @@ __global__ void pack_instances_kernel(
     const float d = depth[g];
     inst_t[0 * k + i] = mean2d[2 * g + 0];
     inst_t[1 * k + i] = mean2d[2 * g + 1];
-    inst_t[2 * k + i] = -0.5f * conic[3 * g + 0];
-    inst_t[3 * k + i] = -conic[3 * g + 1];
-    inst_t[4 * k + i] = -0.5f * conic[3 * g + 2];
-    inst_t[5 * k + i] = opacity[g];
-    inst_t[6 * k + i] = rgb[3 * g + 0];
-    inst_t[7 * k + i] = rgb[3 * g + 1];
-    inst_t[8 * k + i] = rgb[3 * g + 2];
+    float vals[7] = {
+        -0.5f * conic[3 * g + 0], -conic[3 * g + 1], -0.5f * conic[3 * g + 2],
+        opacity[g], rgb[3 * g + 0], rgb[3 * g + 1], rgb[3 * g + 2],
+    };
+#pragma unroll
+    for (int r = 0; r < 7; ++r)
+        inst_t[(2 + r) * k + i] = hybrid ? gs::round_bf16(vals[r]) : vals[r];
     inst_t[9 * k + i] = 1.0f / fmaxf(d, 0.2f);
 #pragma unroll
     for (int r = 10; r < N_ROWS; ++r) inst_t[r * k + i] = 0.0f;
@@ -157,15 +164,15 @@ extern "C" int gs_expand_instances(
 extern "C" int gs_pack_instances(
     const void* keys_sorted, const void* perm, const void* gids, const void* mean2d,
     const void* conic, const void* opacity, const void* rgb, const void* depth,
-    long long k, int num_tiles, void* inst_t, void* gauss_id, void* tile_id,
-    void* bounds, void* stream)
+    long long k, int num_tiles, int hybrid, void* inst_t, void* gauss_id,
+    void* tile_id, void* bounds, void* stream)
 {
     const int threads = 256;
     const long long blocks = (k + 1 + threads - 1) / threads;  // K + 1 threads
     pack_instances_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const long long*)keys_sorted, (const long long*)perm, (const int*)gids,
         (const float*)mean2d, (const float*)conic, (const float*)opacity,
-        (const float*)rgb, (const float*)depth, k, num_tiles, (float*)inst_t,
+        (const float*)rgb, (const float*)depth, k, num_tiles, hybrid, (float*)inst_t,
         (int*)gauss_id, (int*)tile_id, (int*)bounds);
     return (int)cudaGetLastError();
 }

@@ -22,9 +22,8 @@
 // range lengths across SMs.
 //
 // Semantics, equal to the TPU kernel's (rasterize_pallas.py:184-242, 368-493):
-//   power = (ca*dx*dx + cc*dy*dy) + cb*dx*dy on the folded conic, in that
-//     association order (built with -fmad=false: contraction would change it);
-//   alpha = min(op * expf(power), 0.99); kept if power <= 0 and alpha >= 1/255;
+//   power, alpha and keep as `gs::pair_power` and `gs::pair_alpha`
+//     (common.cuh) compute them, the one definition the backward K3' shares;
 //   the pixel stops when T * (1 - alpha) < 1e-4, and that gaussian is not
 //     blended; final_T is the T of the blended prefix;
 //   invdepth = sum of w * invz; n_contrib = 1-based position of the last
@@ -32,16 +31,13 @@
 //   empty tiles give color 0 and final_T 1.
 // Output (T, 256, 8) float32: [r, g, b, invdepth, final_T, n_contrib, 0, 0].
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PPT = TILE * TILE;  // pixels per tile == threads per block
-constexpr int N_ATTR = 10;        // mx, my, ca, cb, cc, op, r, g, b, invz
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
+using gs::N_ATTR;
+using gs::PPT;
+using gs::TILE;
 
 __global__ void __launch_bounds__(PPT) blend_fwd_kernel(
     const float* __restrict__ inst_t,  // (16, K)
@@ -74,19 +70,13 @@ __global__ void __launch_bounds__(PPT) blend_fwd_kernel(
         }
         __syncthreads();
         for (int j = 0; j < nb && !done; ++j) {
-            const float dx = batch[0][j] - px;
-            const float dy = batch[1][j] - py;
-            const float power = (batch[2][j] * dx * dx + batch[4][j] * dy * dy)
-                                + batch[3][j] * dx * dy;
-            // the keep rule as the reference writes it (power <= 0, alpha >=
-            // 1/255, alpha clamped as torch.clamp does), so a NaN power or
-            // opacity drops the pair there and here (fminf would keep it)
-            if (!(power <= 0.0f)) continue;
-            const float a = batch[5][j] * expf(power);
-            const float alpha = a > ALPHA_MAX ? ALPHA_MAX : a;
-            if (!(alpha >= ALPHA_MIN)) continue;
+            float dx, dy, power, g, alpha;
+            if (!gs::pair_power(batch[0][j], batch[1][j], batch[2][j], batch[3][j],
+                                batch[4][j], px, py, dx, dy, power)
+                || !gs::pair_alpha(power, batch[5][j], g, alpha))
+                continue;
             const float test_t = T * (1.0f - alpha);
-            if (test_t < T_EPS) {
+            if (test_t < gs::T_EPS) {
                 done = true;
                 break;
             }

@@ -15,7 +15,7 @@ from PIL import Image
 from gsplat_tpu_torch.convert import camera_from_numpy
 from gsplat_tpu_torch.core.types import Camera
 from gsplat_tpu_torch.data.readers import CameraInfo
-from gsplat_tpu_torch.utils.graphics import projection_matrix, world_to_view
+from gsplat_tpu_torch.utils.graphics import fov2focal, projection_matrix, world_to_view
 
 
 def _resolution(orig_w, orig_h, resolution, resolution_scale):
@@ -160,3 +160,22 @@ def load_camera(
         fovx=info.fovx,
         fovy=info.fovy,
     )
+
+
+def camera_to_json(uid, cam: LoadedCamera) -> dict:
+    """Viewer-compatible cameras.json entry (`camera_utils.py:77-96`)."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = cam.R.transpose()
+    Rt[:3, 3] = cam.T
+    Rt[3, 3] = 1.0
+    w2c = np.linalg.inv(Rt)
+    return {
+        "id": uid,
+        "img_name": cam.image_name,
+        "width": cam.width,
+        "height": cam.height,
+        "position": w2c[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in w2c[:3, :3]],
+        "fy": fov2focal(cam.fovy, cam.height),
+        "fx": fov2focal(cam.fovx, cam.width),
+    }

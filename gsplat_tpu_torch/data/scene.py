@@ -1,16 +1,29 @@
-"""Read-only scene container: dataset dispatch and camera lists.
+"""Scene container: dataset dispatch, camera lists, model snapshots.
 
-Counterpart of `gsplat_tpu/data/scene.py` for rendering. Writing model
-snapshots (`model_path`) belongs to the training slice, so only
-`model_path=None` is accepted.
+Counterpart of `gsplat_tpu/data/scene.py`. The Scene owns the data side
+(cameras, initial point cloud, extent) and snapshot IO; the model itself is
+a dict of tensors. With `model_path` it copies the input point cloud to
+`input.ply`, writes `cameras.json`, and `save` writes reference-layout
+snapshots (`point_cloud/iteration_<n>/point_cloud.ply` + `exposure.json`)
+that the port's render CLI and the JAX package's `load_snapshot` both read.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
+import shutil
 
-from gsplat_tpu_torch.data.cameras import LoadedCamera, load_camera
+import numpy as np
+
+from gsplat_tpu_torch.data import ply as ply_io
+from gsplat_tpu_torch.data.cameras import LoadedCamera, camera_to_json, load_camera
 from gsplat_tpu_torch.data.readers import read_scene_info
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
 
 
 class Scene:
@@ -29,13 +42,8 @@ class Scene:
         seed: int = 0,
         device="cuda",
     ):
-        if model_path:
-            raise NotImplementedError(
-                "Scene is read-only in gsplat_tpu_torch so far: writing model "
-                "snapshots comes with the training slice (pass model_path=None)"
-            )
         self.source_path = source_path
-        self.model_path = None
+        self.model_path = model_path
         self.train_test_exp = train_test_exp
 
         info = read_scene_info(
@@ -49,6 +57,11 @@ class Scene:
         self.info = info
         self.cameras_extent = info.nerf_normalization["radius"]
         self.is_nerf_synthetic = info.is_nerf_synthetic
+
+        if model_path:
+            os.makedirs(model_path, exist_ok=True)
+            if info.ply_path and os.path.exists(info.ply_path):
+                shutil.copyfile(info.ply_path, os.path.join(model_path, "input.ply"))
 
         train_infos = list(info.train_cameras)
         test_infos = list(info.test_cameras)
@@ -74,8 +87,36 @@ class Scene:
             self.train_cameras[scale] = load_all(train_infos, False)
             self.test_cameras[scale] = load_all(test_infos, True)
 
+        if model_path:
+            cams = self.train_cameras.get(1.0, []) + self.test_cameras.get(1.0, [])
+            with open(os.path.join(model_path, "cameras.json"), "w") as f:
+                json.dump([camera_to_json(c.uid, c) for c in cams], f)
+
     def get_train_cameras(self, scale: float = 1.0):
         return self.train_cameras[scale]
 
     def get_test_cameras(self, scale: float = 1.0):
         return self.test_cameras[scale]
+
+    def save(self, iteration: int, params, alive, exposure=None, image_names=None):
+        """Model snapshot of the live rows: reference-layout PLY +
+        exposure.json (`scene/__init__.py:85-94`). `params` maps field
+        names to (C, ...) tensors or arrays."""
+        if not self.model_path:
+            raise ValueError("Scene needs model_path to save snapshots")
+        pc_dir = os.path.join(self.model_path, f"point_cloud/iteration_{iteration}")
+        os.makedirs(pc_dir, exist_ok=True)
+        keep = _host(alive).astype(bool)
+        p = {k: _host(params[k])[keep] for k in (
+            "xyz", "features_dc", "features_rest", "opacity", "scaling", "rotation")}
+        ply_io.save_gaussian_ply(
+            os.path.join(pc_dir, "point_cloud.ply"),
+            p["xyz"], p["features_dc"], p["features_rest"], p["opacity"], p["scaling"],
+            p["rotation"],
+        )
+        if exposure is not None:
+            names = image_names or [c.image_name for c in self.get_train_cameras()]
+            exp = _host(exposure)
+            mapping = {nm: exp[i].tolist() for i, nm in enumerate(names[: exp.shape[0]])}
+            with open(os.path.join(self.model_path, "exposure.json"), "w") as f:
+                json.dump(mapping, f, indent=2)

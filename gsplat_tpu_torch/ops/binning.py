@@ -19,6 +19,13 @@ On a CUDA tensor it runs kernel K1' (`csrc/binning.cu`, replacing the Pallas
   1/max(depth, 0.2)) and the tile boundaries, which give `tile_start` and
   `tile_end` without a searchsorted.
 
+Packet modes (`packet_dtype`): "float32" stores every row exactly;
+"hybrid", the training default, rounds the folded conic, opacity and rgb
+rows 2-8 to bf16 (nearest even) after the fold and stores them as float32,
+as the JAX package's bf16 pair packing leaves them (`binning.py:737-795`);
+mean2d and invz stay exact. All-bf16 packets are not ported (the JAX
+package calls them forward-only, `config.py:82-84`).
+
 `compute_row_runs`, the prefix sum and the sort stay in plain PyTorch, as
 the JAX package leaves them to XLA (`torch.sort(stable=True)` stands in for
 `lax.sort`). On a CPU tensor, `pack_bins` runs the plain twin
@@ -337,7 +344,12 @@ def _gaussian_columns(screen: ScreenGaussians):
     )
 
 
-def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles):
+def round_bf16(x):
+    """float32 -> bf16 (round to nearest even) -> float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles, hybrid=False):
     """Plain twin of `pack_instances`: (inst_t (16, K), gauss_id, tile_id,
     bounds (T+1,)) from the sorted keys and the sort permutation."""
     k = keys_sorted.shape[0]
@@ -346,6 +358,8 @@ def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles):
     tile_id = (keys_sorted >> 32).to(torch.int32)
     inst_t = torch.zeros((N_ROWS, k), dtype=torch.float32, device=dev)
     inst_t[:10] = _gaussian_columns(screen)[:, gauss_id.long()]
+    if hybrid:
+        inst_t[2:9] = round_bf16(inst_t[2:9])
     bounds = torch.searchsorted(
         tile_id, torch.arange(num_tiles + 1, device=dev, dtype=torch.int32)
     ).to(torch.int32)
@@ -395,10 +409,11 @@ def expand_instances(rect, cum_excl, trimmed, t_lo, cum_run, depth, total,
 expand_instances.launches = 0
 
 
-def pack_instances(keys_sorted, perm, gid, screen, num_tiles):
+def pack_instances(keys_sorted, perm, gid, screen, num_tiles, hybrid=False):
     """Kernel K1', launch 2: instance table + tile boundaries on the card.
 
-    Same contract as `_pack_instances_torch`. CUDA tensors only.
+    Same contract as `_pack_instances_torch`, `hybrid` included. CUDA
+    tensors only.
     """
     from gsplat_tpu_torch import _kernels
 
@@ -425,20 +440,33 @@ def pack_instances(keys_sorted, perm, gid, screen, num_tiles):
     err = lib.gs_pack_instances(
         keys_sorted.data_ptr(), perm.data_ptr(), gid.data_ptr(),
         mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), k, num_tiles,
+        depth.data_ptr(), k, num_tiles, int(hybrid),
         inst_t.data_ptr(), gauss_id.data_ptr(), tile_id.data_ptr(), bounds.data_ptr(),
         _kernels.stream(dev),
     )
     _kernels.check(err, "pack_instances")
     pack_instances.launches += 1
+    pack_instances.launches_hybrid += int(hybrid)
     return inst_t, gauss_id, tile_id, bounds
 
 
+# all launches, and those of them with hybrid packets
 pack_instances.launches = 0
+pack_instances.launches_hybrid = 0
 
 
-def _pack(screen, grid_x, grid_y, tile, tight_cull, expand, pack) -> PackedBins:
+def _hybrid(packet_dtype: str) -> bool:
+    if packet_dtype not in ("float32", "hybrid"):
+        raise NotImplementedError(
+            f"packet_dtype={packet_dtype!r}: only float32 and hybrid packets are "
+            "ported (all-bf16 packets are forward-only in the JAX package)"
+        )
+    return packet_dtype == "hybrid"
+
+
+def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, expand, pack) -> PackedBins:
     num_tiles = grid_x * grid_y
+    hybrid = _hybrid(packet_dtype)
     screen = screen.detach()
     rect, cum_excl, trimmed, t_lo, cum_run, total = _emission_tables(
         screen, tile, tight_cull
@@ -446,7 +474,7 @@ def _pack(screen, grid_x, grid_y, tile, tight_cull, expand, pack) -> PackedBins:
     keys, gid = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen.depth,
                        total, grid_x, tight_cull)
     keys_sorted, perm = torch.sort(keys, stable=True)
-    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, screen, num_tiles)
+    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, screen, num_tiles, hybrid)
     return PackedBins(
         inst_t=inst_t,
         gauss_id=gauss_id,
@@ -463,9 +491,10 @@ def pack_bins_torch(
     grid_y: int,
     tile: int = 16,
     tight_cull: bool = True,
+    packet_dtype: str = "float32",
 ) -> PackedBins:
     """Plain PyTorch twin of `pack_bins`, on any device."""
-    return _pack(screen, grid_x, grid_y, tile, tight_cull,
+    return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
                  _expand_instances_torch, _pack_instances_torch)
 
 
@@ -475,15 +504,17 @@ def pack_bins(
     grid_y: int,
     tile: int = 16,
     tight_cull: bool = True,
+    packet_dtype: str = "float32",
 ) -> PackedBins:
     """Fused binning + instance packing (`gsplat_tpu/ops/binning.py:620`).
 
     Same instance order as `bin_gaussians`: (tile, depth bits, gaussian id).
     On a CUDA tensor through kernel K1' (`expand_instances`,
     `pack_instances`); on a CPU tensor through `pack_bins_torch`.
-    Non-differentiable structure: the screen quantities are detached.
+    Non-differentiable structure: the screen quantities are detached, as
+    `binning.py:657` stops their gradients.
     """
     if screen.depth.is_cuda:
-        return _pack(screen, grid_x, grid_y, tile, tight_cull,
+        return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
                      expand_instances, pack_instances)
-    return pack_bins_torch(screen, grid_x, grid_y, tile, tight_cull)
+    return pack_bins_torch(screen, grid_x, grid_y, tile, tight_cull, packet_dtype)

@@ -1,19 +1,28 @@
-"""The sorted forward blend on the card: kernel K2' and its plain twin.
+"""The differentiable sorted blend on the card: kernels K2' and K3'.
 
-Counterpart of `gsplat_tpu/ops/rasterize_pallas.py` (the forward of
-`blend_tiles_pallas`, sorted mode). `blend_tiles_cuda` launches K2'
-(`csrc/rasterize_fwd.cu`, replacing the Pallas `_fwd_kernel`,
-`rasterize_pallas.py:368`) on a CUDA tensor; on a CPU tensor it runs the
-plain twin `blend_packed_torch`. Both take a `PackedBins` and return the
-kernel's (T, 256, 8) float32 output [r, g, b, invdepth, final_T, n_contrib,
-0, 0].
+Counterpart of `gsplat_tpu/ops/rasterize_pallas.py` (`blend_tiles_pallas`,
+sorted mode, and its custom VJP `_make_blend_vjp`, :1193-1246).
 
-The twin walks every tile's range one instance at a time, batched over
-tiles and pixels, with the kernel's arithmetic in the kernel's order, so
-the two agree to the rounding of `exp`.
+- Forward: K2' `blend_fwd` (`csrc/rasterize_fwd.cu`, replacing the Pallas
+  `_fwd_kernel`, `rasterize_pallas.py:368`), plain twin
+  `blend_packed_torch`. Both take the packed instance table and return the
+  (T, 256, 8) float32 output [r, g, b, invdepth, final_T, n_contrib, 0, 0].
+- Backward: K3' `blend_bwd` (`csrc/rasterize_bwd.cu`, replacing the Pallas
+  `_bwd_kernel`, `rasterize_pallas.py:605`), plain twin
+  `blend_bwd_packed_torch`: (10, K) per-instance gradient rows from the
+  forward output and its cotangent. The rows are summed per gaussian by
+  `reduce_by_gid` (K4', `ops/reduce.py`).
+- `BlendFunction` is the `torch.autograd.Function` with the arguments of
+  the JAX custom VJP: the five differentiable per-gaussian arrays (mean2d,
+  conic, opacity, rgb, invz = 1/max(depth, 0.2)) and the detached instance
+  table, ranges and gauss_id (no slot mask: see `BlendFunction`). Its
+  backward returns d mean2d,
+  d conic in the true (unfolded) basis, d opacity, d rgb and d invz.
 
-No autograd yet: the backward slice wraps this in a
-`torch.autograd.Function` over kernels K3' and K4'.
+On CUDA tensors the kernels run; on CPU tensors the twins, which walk every
+tile's range one instance at a time, batched over tiles and pixels, with
+the kernels' arithmetic in the kernels' order: the forwards agree to the
+rounding of `exp`, the backwards to the order of the per-pixel sums.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from __future__ import annotations
 import torch
 
 from gsplat_tpu_torch.ops.binning import PackedBins
+from gsplat_tpu_torch.ops.projection import ScreenGaussians
+from gsplat_tpu_torch.ops.reduce import reduce_by_gid
 from gsplat_tpu_torch.ops.rasterize_torch import (
     ALPHA_MAX,
     ALPHA_MIN,
@@ -127,18 +138,177 @@ def blend_fwd(inst_t, tile_start, tile_end, grid_x, grid_y, track_contrib=False)
 blend_fwd.launches = 0
 
 
+def blend_bwd_packed_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout,
+                           count_pairs=False):
+    """Plain twin of K3': (10, K) per-instance gradient rows.
+
+    Walks every tile's range front to back with the forward's keep and stop
+    decisions (the same arithmetic as `blend_packed_torch`), batched over
+    tiles and pixels; each row is the sum over the tile's 256 pixels of the
+    kernel's per-pixel terms (see `csrc/rasterize_bwd.cu`).
+
+    With `count_pairs`, also returns the number of (pixel, instance) pairs
+    the kernel evaluates (as `blend_packed_torch` counts them) and the
+    number it blends, which get the gradient terms.
+    """
+    dev = inst_t.device
+    num_tiles = grid_x * grid_y
+    k = inst_t.shape[1]
+    pix = tile_pixel_coords(grid_x, grid_y, 16, dev)
+    px, py = pix[..., 0], pix[..., 1]  # (T, 256)
+    start = tile_start.long()
+    length = (tile_end - tile_start).long()
+    max_len = int(length.max()) if num_tiles else 0
+
+    f = fwd.reshape(num_tiles, PPT, 8)
+    d = dout.reshape(num_tiles, PPT, 8)
+    d0, d1, d2, d3 = d[..., 0], d[..., 1], d[..., 2], d[..., 3]
+    s_total = ((f[..., 0] * d0 + f[..., 1] * d1) + f[..., 2] * d2) + f[..., 3] * d3
+    bgdot = d[..., 4] * f[..., 4]
+
+    T = torch.ones((num_tiles, PPT), dtype=torch.float32, device=dev)
+    prefix = torch.zeros((num_tiles, PPT), dtype=torch.float32, device=dev)
+    done = torch.zeros((num_tiles, PPT), dtype=torch.bool, device=dev)
+    dinst = torch.zeros((10, k), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    blended = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for j in range(max_len):
+        if j % 64 == 0 and bool((done | (j >= length)[:, None]).all()):
+            break
+        has = j < length  # (T,)
+        walk = has[:, None] & ~done
+        idx = torch.clamp(start + j, max=max(k - 1, 0))
+        mx, my, ca, cb, cc, op, r, g_, b, iz = (v[:, None] for v in inst_t[:10, idx])
+        dx = mx - px
+        dy = my - py
+        power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        g = torch.exp(power)
+        alpha = torch.clamp(op * g, max=ALPHA_MAX)
+        keep = walk & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        test_t = T * (1.0 - alpha)
+        stop = keep & (test_t < T_EPS)
+        blend = keep & ~stop
+
+        c = ((r * d0 + g_ * d1) + b * d2) + iz * d3
+        w = alpha * T
+        prefix = torch.where(blend, prefix + w * c, prefix)
+        suffix = s_total - prefix
+        inv_one_m = 1.0 / (1.0 - alpha)
+        dalpha = T * c - (suffix + bgdot) * inv_one_m
+        dgm = (op * dalpha) * g
+        terms = (
+            dgm * ((ca + ca) * dx + cb * dy),
+            dgm * ((cc + cc) * dy + cb * dx),
+            -0.5 * (dgm * dx * dx),
+            -(dgm * dx * dy),
+            -0.5 * (dgm * dy * dy),
+            g * dalpha,
+            w * d0, w * d1, w * d2, w * d3,
+        )
+        rows = torch.stack([torch.where(blend, t, zero).sum(dim=1) for t in terms])
+        dinst[:, idx[has]] = rows[:, has]
+        T = torch.where(blend, test_t, T)
+        if count_pairs:
+            evaluated = evaluated + walk.sum()
+            blended = blended + blend.sum()
+        done = done | stop
+    if count_pairs:
+        return dinst, int(evaluated), int(blended)
+    return dinst
+
+
+def blend_bwd(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
+    """Kernel K3' on the card: same contract as `blend_bwd_packed_torch`.
+    CUDA tensors only."""
+    from gsplat_tpu_torch import _kernels
+
+    if not inst_t.is_cuda:
+        raise ValueError("blend_bwd launches a CUDA kernel: tensors must be on a CUDA device")
+    if inst_t.dtype != torch.float32 or inst_t.dim() != 2 or inst_t.shape[0] < 10:
+        raise ValueError(f"inst_t must be (16, K) float32, got {tuple(inst_t.shape)} {inst_t.dtype}")
+    num_tiles = grid_x * grid_y
+    if tile_start.shape != (num_tiles,) or tile_end.shape != (num_tiles,):
+        raise ValueError("tile_start/tile_end must be (grid_x * grid_y,)")
+    for name, t in (("fwd", fwd), ("dout", dout)):
+        if t.shape != (num_tiles, PPT, 8) or t.dtype != torch.float32 or t.device != inst_t.device:
+            raise ValueError(f"{name} must be ({num_tiles}, {PPT}, 8) float32 on {inst_t.device}")
+    k = inst_t.shape[1]
+    inst_t = inst_t.contiguous()
+    tile_start = tile_start.to(torch.int32).contiguous()
+    tile_end = tile_end.to(torch.int32).contiguous()
+    fwd, dout = fwd.contiguous(), dout.contiguous()
+    dinst = torch.empty((10, k), dtype=torch.float32, device=inst_t.device)
+    if k == 0:
+        return dinst
+    lib = _kernels.load("rasterize_bwd")
+    err = lib.gs_blend_bwd(
+        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), num_tiles,
+        grid_x, fwd.data_ptr(), dout.data_ptr(), dinst.data_ptr(),
+        _kernels.stream(inst_t.device),
+    )
+    _kernels.check(err, "blend_bwd")
+    blend_bwd.launches += 1
+    return dinst
+
+
+blend_bwd.launches = 0
+
+
+class BlendFunction(torch.autograd.Function):
+    """The sorted blend with its hand-written backward (`_make_blend_vjp`).
+
+    forward(mean2d, conic, opacity, rgb, invz, inst_t, tile_start, tile_end,
+    gauss_id, grid_x, grid_y, track_contrib, pack_bf16) -> (T, 256, 8). The
+    forward reads only the packed (detached) instance table; the five
+    per-gaussian arrays exist to receive the gradients.
+
+    The per-frame instance buffer is sized to the frame's instance count,
+    so every slot is a real instance: the JAX VJP's slot mask
+    (`rasterize_pallas.py:1219-1220`), which zeroes the padding of its
+    fixed-capacity buffer, has nothing to zero here.
+    """
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, rgb, invz, inst_t, tile_start, tile_end,
+                gauss_id, grid_x, grid_y, track_contrib, pack_bf16):
+        args = (inst_t, tile_start, tile_end, grid_x, grid_y, track_contrib)
+        out = blend_fwd(*args) if inst_t.is_cuda else blend_packed_torch(*args)
+        ctx.save_for_backward(out, inst_t, tile_start, tile_end, gauss_id)
+        ctx.grid = (grid_x, grid_y)
+        ctx.pack_bf16 = pack_bf16
+        ctx.n_gauss = mean2d.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
+        bwd = blend_bwd if inst_t.is_cuda else blend_bwd_packed_torch
+        dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
+        drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
+        return (drows[0:2].T, drows[2:5].T, drows[5], drows[6:9].T, drows[9],
+                None, None, None, None, None, None, None, None)
+
+
 def blend_tiles_cuda(
+    screen: ScreenGaussians,
     bins: PackedBins,
     grid_x: int,
     grid_y: int,
     tile: int = 16,
     track_contrib: bool = False,
     blend_mode: str = "sorted",
+    reduce_pack: bool = False,
 ) -> BlendOutput:
-    """Blend the sorted instance stream: the forward of `blend_tiles_pallas`.
+    """Blend the sorted instance stream: `blend_tiles_pallas`, sorted mode.
 
-    On a CUDA tensor through kernel K2' (`blend_fwd`); on a CPU tensor
-    through `blend_packed_torch`.
+    Differentiable w.r.t. the screen arrays through `BlendFunction`: K2'
+    forward, K3' backward and K4' per-gaussian reduce on CUDA tensors, their
+    plain twins on CPU tensors. Without gradients (inference, or screen
+    arrays that need none) only the forward runs. `reduce_pack` rounds the per-instance
+    gradient rows to bf16 before the sum, as the hybrid packet mode does
+    (`render.py:93`).
     """
     if tile * tile != PPT:
         raise ValueError("the blend kernel is built for 16x16 tiles")
@@ -146,8 +316,16 @@ def blend_tiles_cuda(
         raise NotImplementedError(
             f"blend_mode={blend_mode!r}: the OIT kernels (K5, K6) are not ported yet"
         )
-    args = (bins.inst_t, bins.tile_start, bins.tile_end, grid_x, grid_y, track_contrib)
-    out = blend_fwd(*args) if bins.inst_t.is_cuda else blend_packed_torch(*args)
+    diff = (screen.mean2d, screen.conic, screen.opacity, screen.rgb, screen.depth)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
+        invz = 1.0 / torch.clamp(screen.depth, min=0.2)
+        out = BlendFunction.apply(
+            *diff[:4], invz, bins.inst_t, bins.tile_start, bins.tile_end, bins.gauss_id,
+            grid_x, grid_y, track_contrib, reduce_pack,
+        )
+    else:  # serving: the forward alone, no autograd bookkeeping
+        args = (bins.inst_t, bins.tile_start, bins.tile_end, grid_x, grid_y, track_contrib)
+        out = blend_fwd(*args) if bins.inst_t.is_cuda else blend_packed_torch(*args)
     return BlendOutput(
         color=out[:, :, 0:3],
         invdepth=out[:, :, 3],

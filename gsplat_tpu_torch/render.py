@@ -1,9 +1,15 @@
 """High-level renderer: counterpart of `gsplat_tpu/render.py`.
 
 One view goes through `preprocess` (plain PyTorch), `pack_bins` (kernel K1'
-plus one `torch.sort`), `blend_tiles_cuda` (kernel K2'), then the background
-composite, `tiles_to_image`, exposure and clip in plain PyTorch. Images are
-HWC, as in the JAX package. On a CPU device the kernels' plain twins run.
+plus one `torch.sort`), `blend_tiles_cuda` (kernel K2' forward; K3' and K4'
+in its backward), then the background composite, `tiles_to_image`, exposure
+and clip in plain PyTorch. Images are HWC, as in the JAX package. On a CPU
+device the kernels' plain twins run.
+
+The render is differentiable: gradients reach every parameter, the
+optional `mean2d_offset` (the densification signal) and the exposure, as
+`jax.grad` of the JAX package's render does. Binning is structure: it sees
+detached screen arrays.
 
 `instance_overflow` and `tile_overflow` are always 0: the instance buffer is
 sized per frame and the blend walks every instance of a tile.
@@ -53,10 +59,11 @@ def render(
       camera: the view.
       params: Gaussian parameters (pre-activation).
       alive: (N,) bool live-row mask.
-      settings: render settings; only float32 packets and the sorted blend
-        are ported so far.
+      settings: render settings; float32 and hybrid packets and the sorted
+        blend are ported.
       bg: (3,) background color.
-      mean2d_offset: optional (N, 2) zeros added to the pixel centers.
+      mean2d_offset: optional (N, 2) zeros added to the pixel centers; its
+        gradient is the viewspace densification signal (pixel units).
       exposure: optional (3, 4) affine applied to the rendered image.
       device: where to render; `None` means `cuda` (raises without a card).
 
@@ -65,15 +72,11 @@ def render(
       "final_t" (H, W), "radii" (N,), "visibility" (N,) bool,
       "instance_overflow", "tile_overflow" (both 0) and "num_instances".
     """
-    if settings.packet_dtype != "float32":
-        raise NotImplementedError(
-            f"packet_dtype={settings.packet_dtype!r}: only float32 packets are "
-            "ported so far (hybrid and bfloat16 come in a later slice)"
-        )
     dev = resolve_device(device)
     camera = camera.to(dev)
     if params.xyz.device != dev:
-        # a differentiable view on `dev`; the module itself is not moved
+        # a view on `dev` whose gradients flow back to the caller's leaves;
+        # the module itself is not moved
         params = SimpleNamespace(**{k: getattr(params, k).to(dev) for k in PARAM_FIELDS})
     alive = torch.as_tensor(alive, device=dev)
     gx, gy = grid_dims(camera, settings.tile)
@@ -82,10 +85,12 @@ def render(
         params, alive, camera, settings, gx, gy,
         None if mean2d_offset is None else mean2d_offset.to(dev),
     )
-    bins = pack_bins(screen, gx, gy, settings.tile, settings.tight_cull)
+    bins = pack_bins(screen, gx, gy, settings.tile, settings.tight_cull,
+                     packet_dtype=settings.packet_dtype)
     out = blend_tiles_cuda(
-        bins, gx, gy, settings.tile,
+        screen, bins, gx, gy, settings.tile,
         track_contrib=settings.track_contrib, blend_mode=settings.blend_mode,
+        reduce_pack=settings.packet_dtype == "hybrid",
     )
 
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)

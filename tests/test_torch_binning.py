@@ -71,6 +71,25 @@ def test_pack_bins_matches_jax(seed, n, tight_cull):
     assert_packed_equal(tp, jp, gx, gy)
 
 
+@pytest.mark.parametrize("seed,tight_cull", [(3, True), (7, False)])
+def test_pack_bins_hybrid_matches_jax(seed, tight_cull):
+    """Hybrid packets (the training default): the folded conic, opacity and
+    rgb rows rounded to bf16, mean2d and invz exact. Bit for bit equal to
+    the JAX package's bf16 pair packing on the live slots."""
+    js, ts, gx, gy = screen_pair(seed, 1500, tight_cull)
+    jp = jax.jit(lambda s: jb.pack_bins(s, gx, gy, CAP, 16, tight_cull=tight_cull,
+                                        packet_dtype="hybrid"))(js)
+    tp = tb.pack_bins(ts, gx, gy, 16, tight_cull=tight_cull, packet_dtype="hybrid")
+    assert_packed_equal(tp, jp, gx, gy)
+    f32 = tb.pack_bins(ts, gx, gy, 16, tight_cull=tight_cull)
+    rows = tp.inst_t.numpy()
+    np.testing.assert_array_equal(rows[[0, 1, 9]], f32.inst_t.numpy()[[0, 1, 9]])
+    assert (rows[2:9] != f32.inst_t.numpy()[2:9]).mean() > 0.9  # rounded
+    assert not (rows[2:9].view(np.uint32) & 0xFFFF).any()  # on the bf16 grid
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tb.pack_bins(ts, gx, gy, 16, packet_dtype="bfloat16")
+
+
 def test_pack_bins_empty_scene_matches_jax():
     js, _, gx, gy = screen_pair(1, 64, True)
     js = js.replace(tiles_touched=jnp.zeros_like(js.tiles_touched),

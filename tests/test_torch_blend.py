@@ -77,11 +77,11 @@ def test_blend_packed_torch_matches_jnp(width, height):
 def test_blend_tiles_cuda_on_cpu_is_the_plain_twin():
     ts, oj, gx, gy = build()
     pb = tb.pack_bins(ts, gx, gy)
-    o = blend_tiles_cuda(pb, gx, gy, 16, track_contrib=True)
+    o = blend_tiles_cuda(ts, pb, gx, gy, 16, track_contrib=True)
     assert_matches(o.color.numpy(), o.invdepth.numpy(), o.final_t.numpy(),
                    o.n_contrib.numpy(), oj)
     with pytest.raises(NotImplementedError, match="OIT"):
-        blend_tiles_cuda(pb, gx, gy, 16, blend_mode="oit")
+        blend_tiles_cuda(ts, pb, gx, gy, 16, blend_mode="oit")
 
 
 def test_blend_tiles_torch_matches_jnp():

@@ -95,8 +95,8 @@ def test_render_empty_scene_is_background():
 def test_render_refuses_unported_settings():
     params, camera, alive = scene(n=50)
     tp, tc, ta = port_inputs(params, camera, alive)
-    with pytest.raises(NotImplementedError, match="float32"):
-        t_render(tc, tp, ta, t_settings(packet_dtype="hybrid"), [0, 0, 0], device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        t_render(tc, tp, ta, t_settings(packet_dtype="bfloat16"), [0, 0, 0], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_render(tc, tp, ta, t_settings(), [0, 0, 0])
