@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """On-card smoke run of gsplat_tpu_torch: build, check and time the kernels,
-then drive the render path and the train path through their entry points.
+then drive the render and train paths, sorted and OIT, through their entry
+points.
 
     python3 chip_smoke.py
 
@@ -21,27 +22,46 @@ JSON line per phase:
    packets of that scene at 640x480 and 200x120, with a seeded cotangent of
    all five outputs and with NaN conic/opacity entries: per-row max relative
    error below 1e-5;
-6. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
+6. K5' (OIT forward, `blend_oit_fwd`) against its plain twin at those
+   sizes, float32 and hybrid packets, with and without NaN conic/opacity
+   entries: N and D per pixel relative to max(1, |want|) below 2e-5, T
+   within atol 2e-5 (`k5_vs_plain`);
+7. K6' (OIT backward, `blend_oit_bwd`) against its plain twin in the same
+   cases, with a seeded cotangent of all six raw outputs: per-row max
+   relative error below 1e-5 (`k6_vs_plain`);
+8. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
    after; a per-stage breakdown; each kernel's time against its plain twin,
    its bound and its error;
-7. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
-8. the train path at full width: the same scene (noise on features_dc and
+9. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
+10. the OIT render path at full width (`oit_render_path`): the same scene
+   with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
+   the float32 pack once per frame, K5' once, K2' never), 10 sorted and 10
+   OIT frames in turns, stage split, busy share, peak memory, K5' against
+   its twin on 64 tiles and its row;
+11. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
+   at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
+   packets (counts read around them) and the bf16 pack's row;
+12. the train path at full width: the same scene (noise on features_dc and
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
    just after (K1', K2', K3' and K4' once per step), the loss falling, no
    NaN; a stage split, the busy share, peak memory; K3', K4' and the hybrid
    pack against their twins at the train frame's shapes;
-9. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
+13. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
    rounded sum by more than that);
-10. one densify step and one opacity reset on the trained state;
-11. the train CLI (30 iterations, densification forced early) and the render
-   CLI on the model it saved;
-12. the kernels line: one JSON object with every kernel's launches on each
+14. one densify step and one opacity reset on the trained state;
+15. the OIT train path (`oit_train_path`): as 12 with `blend_mode="oit"`
+   (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
+   never), and K6' against its twin on the whole train frame;
+16. the train CLI (30 iterations, densification forced early) and the render
+   CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
+   oit` (`train_cli_oit`);
+17. the kernels line: one JSON object with every kernel's launches on each
    path, times, bound and error.
 
 Then the card's name and power limit on a line of their own, and last the
@@ -80,6 +100,8 @@ WARMUP, TIMED = 5, 20
 CHECK_TILES = 64
 ATOL = 2e-5
 ROW_REL = 1e-5
+OIT_REL = 2e-5  # K5''s N and D per pixel, relative to max(1, |want|)
+BF16_FRAMES = 3
 
 
 class CheckFailed(RuntimeError):
@@ -189,7 +211,8 @@ def all_kernels():
 
     return {"expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
-            "reduce_by_gid": rd.reduce_by_gid_cuda}
+            "reduce_by_gid": rd.reduce_by_gid_cuda,
+            "oit_fwd": rc.blend_oit_fwd, "oit_bwd": rc.blend_oit_bwd}
 
 
 def reset_counts():
@@ -197,25 +220,33 @@ def reset_counts():
     for w in kernels.values():
         w.launches = 0
     kernels["pack_instances"].launches_hybrid = 0
+    kernels["pack_instances"].launches_bf16 = 0
 
 
 def read_counts():
     """Launches since `reset_counts`, one entry per kernel row: the pack
-    wrapper's two counters, read together, split its launches into float32
-    packets (`pack_instances`) and hybrid ones (`pack_instances_hybrid`)."""
+    wrapper's three counters, read together, split its launches into float32
+    packets (`pack_instances`), hybrid ones (`pack_instances_hybrid`) and
+    bf16 ones (`pack_instances_bf16`)."""
     kernels = all_kernels()
     counts = {name: w.launches for name, w in kernels.items()}
-    hybrid = kernels["pack_instances"].launches_hybrid
-    counts["pack_instances"] -= hybrid
-    counts["pack_instances_hybrid"] = hybrid
+    pack = kernels["pack_instances"]
+    counts["pack_instances"] -= pack.launches_hybrid + pack.launches_bf16
+    counts["pack_instances_hybrid"] = pack.launches_hybrid
+    counts["pack_instances_bf16"] = pack.launches_bf16
     return counts
 
 
 # the kernels each path launches once per frame or step: serving packs
-# float32 packets and has no backward; training packs hybrid ones
+# float32 packets and has no backward; training packs hybrid ones; the OIT
+# paths blend with K5' (and K6') in place of K2' (and K3')
 RENDER_KERNELS = ("expand_instances", "pack_instances", "blend_fwd")
 TRAIN_KERNELS = ("expand_instances", "pack_instances_hybrid", "blend_fwd", "blend_bwd",
                  "reduce_by_gid")
+OIT_RENDER_KERNELS = ("expand_instances", "pack_instances", "oit_fwd")
+OIT_TRAIN_KERNELS = ("expand_instances", "pack_instances_hybrid", "oit_fwd", "oit_bwd",
+                     "reduce_by_gid")
+BF16_RENDER_KERNELS = ("expand_instances", "pack_instances_bf16", "blend_fwd")
 
 
 def check_counts(counts, path_kernels, n, what):
@@ -311,6 +342,14 @@ def max_abs_diff(kernel, names, outs, refs):
     return err
 
 
+def nan_rows(inst_t):
+    """The table with NaN conic and opacity entries, which the keep rule drops."""
+    t = inst_t.clone()
+    t[2, ::7] = float("nan")
+    t[5, 3::11] = float("nan")
+    return t
+
+
 def phase_blend(device):
     """K2' vs blend_packed_torch: atol 2e-5, n_contrib exact."""
     from gsplat_tpu_torch.core.types import make_render_settings
@@ -330,10 +369,7 @@ def phase_blend(device):
             check(n_equal, f"blend {w}x{h} track={track}: n_contrib differs")
             cases.append({"size": f"{w}x{h}", "track_contrib": track, "max_abs_err": err})
         # the keep rule on non-finite inputs: a NaN conic or opacity drops the pair
-        nan_t = pb.inst_t.clone()
-        nan_t[2, ::7] = float("nan")
-        nan_t[5, 3::11] = float("nan")
-        args = (nan_t, pb.tile_start, pb.tile_end, gx, gy, True)
+        args = (nan_rows(pb.inst_t), pb.tile_start, pb.tile_end, gx, gy, True)
         err, n_equal = blend_errors(rc.blend_fwd(*args), rc.blend_packed_torch(*args))
         check(err <= ATOL and n_equal, f"blend {w}x{h} NaN rows: max abs err {err}")
         cases.append({"size": f"{w}x{h}", "nan_rows": True, "max_abs_err": err})
@@ -368,10 +404,7 @@ def phase_blend_bwd(device):
         gen = torch.Generator(device=device).manual_seed(7)
         dout = torch.zeros((gx * gy, 256, 8), device=device)
         dout[..., :5] = torch.randn((gx * gy, 256, 5), generator=gen, device=device)
-        nan_t = pb.inst_t.clone()
-        nan_t[2, ::7] = float("nan")
-        nan_t[5, 3::11] = float("nan")
-        for label, table in (("hybrid", pb.inst_t), ("nan_rows", nan_t)):
+        for label, table in (("hybrid", pb.inst_t), ("nan_rows", nan_rows(pb.inst_t))):
             args = (table, pb.tile_start, pb.tile_end, gx, gy)
             fwd = rc.blend_fwd(*args)
             got = rc.blend_bwd(*args, fwd, dout)
@@ -383,6 +416,164 @@ def phase_blend_bwd(device):
                           "max_rel_err": err,
                           "max_abs_err": float((got - want).abs().max())})
     return cases
+
+
+def oit_errors(got, want):
+    """K5' against its twin: N and D (channels 0-4) per pixel relative to
+    max(1, |want|) (the sums carry the weight z^2 <= 25, so they reach the
+    hundreds), T (channel 5) absolutely; channels 6-7 must be 0."""
+    check(not bool(got[..., 6:].any()), "K5' wrote non-zero channels 6-7")
+    if not got.numel():
+        return 0.0, 0.0
+    nd_rel = float(((got[..., :5] - want[..., :5]).abs()
+                    / want[..., :5].abs().clamp(min=1.0)).max())
+    return nd_rel, float((got[..., 5] - want[..., 5]).abs().max())
+
+
+def phase_oit_blend(device):
+    """K5' vs blend_oit_packed_torch on the seeded scene at 640x480 and
+    200x120, float32 and hybrid packets (and NaN conic/opacity rows): N and
+    D per pixel relative to max(1, |want|) below 2e-5, T within atol 2e-5.
+    `bitwise_equal` says whether `log1pf`/`expf` in K5' and `torch.log1p`/
+    `torch.exp` gave the same bits."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    cases = []
+    for w, h in ((SCENE["width"], SCENE["height"]), (200, 120)):
+        scene = tiny_scene(**{**SCENE, "width": w, "height": h}, device=device)
+        screen, gx, gy = screen_of(scene, make_render_settings(sh_degree=3), device)
+        for packets in ("float32", "hybrid"):
+            pb = tb.pack_bins(screen, gx, gy, packet_dtype=packets)
+            for label, table in ((packets, pb.inst_t), (f"{packets}_nan_rows", nan_rows(pb.inst_t))):
+                args = (table, pb.tile_start, pb.tile_end, gx, gy)
+                got, want = rc.blend_oit_fwd(*args), rc.blend_oit_packed_torch(*args)
+                nd_rel, t_err = oit_errors(got, want)
+                check(bool(torch.isfinite(got).all()), f"K5' {w}x{h} {label}: non-finite sums")
+                check(nd_rel < OIT_REL and t_err <= ATOL,
+                      f"K5' {w}x{h} {label}: N/D rel err {nd_rel}, T abs err {t_err}")
+                cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
+                              "nd_max_rel_err": nd_rel, "t_max_abs_err": t_err,
+                              "max_abs_err": float((got - want).abs().max()),
+                              "bitwise_equal": bool(torch.equal(got, want))})
+    return cases
+
+
+def phase_oit_bwd(device):
+    """K6' vs blend_oit_bwd_packed_torch at 640x480 and 200x120, float32 and
+    hybrid packets, with a seeded cotangent of all six raw outputs (N0..3,
+    D, T) and with NaN conic/opacity entries: per-row max relative error
+    below 1e-5."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    cases = []
+    for w, h in ((SCENE["width"], SCENE["height"]), (200, 120)):
+        scene = tiny_scene(**{**SCENE, "width": w, "height": h}, device=device)
+        screen, gx, gy = screen_of(scene, make_render_settings(sh_degree=3), device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        dout = torch.zeros((gx * gy, 256, 8), device=device)
+        dout[..., :6] = torch.randn((gx * gy, 256, 6), generator=gen, device=device)
+        for packets in ("float32", "hybrid"):
+            pb = tb.pack_bins(screen, gx, gy, packet_dtype=packets)
+            for label, table in ((packets, pb.inst_t), (f"{packets}_nan_rows", nan_rows(pb.inst_t))):
+                args = (table, pb.tile_start, pb.tile_end, gx, gy)
+                fwd = rc.blend_oit_fwd(*args)
+                got = rc.blend_oit_bwd(*args, fwd, dout)
+                want = rc.blend_oit_bwd_packed_torch(*args, fwd, dout)
+                check(bool(torch.isfinite(got).all()), f"K6' {w}x{h} {label}: non-finite rows")
+                err = per_row_rel_err(got, want)
+                check(err < ROW_REL, f"K6' {w}x{h} {label}: per-row max rel err {err}")
+                cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
+                              "max_rel_err": err, "max_abs_err": float((got - want).abs().max()),
+                              "bitwise_equal": bool(torch.equal(got, want))})
+    return cases
+
+
+def check_bf16_table(name, kb, pb, hybrid, f32):
+    """K1''s bf16 table bitwise equal to its twin's, every row on the bf16
+    grid, rows 2-8 those of the hybrid table, rows 0, 1 and 9 the float32
+    table's rounded."""
+    from gsplat_tpu_torch.ops import binning as tb
+
+    check(kb.num_instances == pb.num_instances, f"{name}: instance count")
+    for f in ("tile_start", "tile_end", "gauss_id", "tile_id"):
+        check(torch.equal(getattr(kb, f), getattr(pb, f)), f"{name}: {f} differs")
+    check(bitwise_equal(kb.inst_t, pb.inst_t), f"{name}: bf16 inst_t not bitwise equal to its twin")
+    check(bitwise_equal(kb.inst_t[:10], tb.round_bf16(kb.inst_t[:10])), f"{name}: rows not bf16")
+    check(bitwise_equal(kb.inst_t[2:9], hybrid.inst_t[2:9]), f"{name}: rows 2-8 differ from hybrid")
+    check(bitwise_equal(kb.inst_t[[0, 1, 9]], tb.round_bf16(f32.inst_t[[0, 1, 9]])),
+          f"{name}: rows 0, 1, 9 are not the float32 rows rounded")
+
+
+def phase_bf16(device):
+    """All-bf16 packets: K1''s bf16 pack bitwise against its twin on the
+    640x480 scene (tight_cull on and off), then the full-width sorted render
+    with bf16 packets through `render` (counts reset just before, read just
+    after) and the bf16 pack's row at that frame's shapes."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.render import grid_dims, render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    cases = []
+    scene = tiny_scene(**SCENE, device=device)
+    for name, tight in (("tight_cull_bf16", True), ("rect_bf16", False)):
+        screen, gx, gy = screen_of(scene, make_render_settings(sh_degree=3, tight_cull=tight),
+                                   device)
+        kb = tb.pack_bins(screen, gx, gy, 16, tight, packet_dtype="bfloat16")
+        pb = tb.pack_bins_torch(screen, gx, gy, 16, tight, packet_dtype="bfloat16")
+        check_bf16_table(name, kb, pb, tb.pack_bins(screen, gx, gy, 16, tight, packet_dtype="hybrid"),
+                         tb.pack_bins(screen, gx, gy, 16, tight))
+        cases.append({"case": name, "instances": kb.num_instances})
+    del scene
+
+    params, alive, camera = tiny_scene(**FULL, device=device)
+    bg = [0.0, 0.0, 0.0]
+    settings = make_render_settings(sh_degree=3, packet_dtype="bfloat16")
+    reset_counts()
+    frame_ms = []
+    for _ in range(BF16_FRAMES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = render(camera, params, alive, settings, bg, device=DEVICE)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_counts()
+    check_counts(launches, BF16_RENDER_KERNELS, BF16_FRAMES, "bf16 render path")
+    img = out["render"]
+    check(img.shape == (FULL["height"], FULL["width"], 3), "bf16 image shape")
+    check(bool(torch.isfinite(img).all()), "bf16 image has non-finite values")
+    check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, "bf16 image outside [0, 1]")
+    check(float(img.std()) > 0.01, "bf16 image is flat")
+    f32 = render(camera, params, alive, make_render_settings(sh_degree=3), bg, device=DEVICE)
+    diff = (img - f32["render"]).abs()
+
+    # the bf16 pack at the frame's shapes, against its twin bit for bit
+    gx, gy = grid_dims(camera, 16)
+    screen, _, _ = screen_of((params, alive, camera), settings, device)
+    tables = tb._emission_tables(screen.detach(), 16, True)
+    keys, gid = tb.expand_instances(*tables[:5], screen.depth, tables[5], gx, True)
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    pack_args = (keys_sorted, perm, gid, screen, gx * gy, "bfloat16")
+    pack_err = max_abs_diff("pack_instances (bf16)", ("inst_t", "gauss_id", "tile_id", "bounds"),
+                            tb.pack_instances(*pack_args), tb._pack_instances_torch(*pack_args))
+    pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
+    pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
+    live = int((tables[0][:, 3] > 0).sum())
+    summary = {
+        "table_cases": cases, "gaussians": FULL["n"], "size": f"{FULL['width']}x{FULL['height']}",
+        "instances": out["num_instances"], "frame_ms": frame_ms,
+        "frame_ms_median": statistics.median(frame_ms), "launches": launches,
+        "vs_float32_frame": {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean())},
+    }
+    row = measured(pack_ms, pack_plain_ms, pack_bound_of(tables[5], live, gx * gy),
+                   pack_err, pack_err)
+    return summary, {"pack_instances_bf16": row}
 
 
 def reduce_errors(dinst, gid, n):
@@ -428,7 +619,9 @@ def phase_main_path(device):
     bg = [0.0, 0.0, 0.0]
     setup_s = time.perf_counter() - t0
 
-    # --- the render path: counts reset just before, read just after
+    # --- the render path: counts (and the peak memory) reset just before,
+    # read just after
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     frame_ms = []
     for i in range(WARMUP + TIMED):
@@ -439,6 +632,7 @@ def phase_main_path(device):
         if i >= WARMUP:
             frame_ms.append((time.perf_counter() - t) * 1e3)
     launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check_counts(launches, RENDER_KERNELS, WARMUP + TIMED, "render path")
     img = out["render"]
     check(img.shape == (FULL["height"], FULL["width"], 3), "image shape")
@@ -548,9 +742,129 @@ def phase_main_path(device):
         "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
         "sort_ms": sort_ms, "launches": launches,
         "blend_check_tiles": CHECK_TILES, "blend_full_frame_max_abs_err": full_err,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak_gib,
     }
     return summary, rows
+
+
+# float32 operations each kept (pixel, instance) pair adds in K5': alpha
+# (exp, multiply, clamp, compare) 4, the weight z^2 and alpha z^2 2, N and D
+# 9, the log term (negate, log1p, add) 3
+OIT_FWD_OPS_PER_KEPT = 18
+# and in K6': alpha 4, K 8, 1/(1 - alpha) 2, dalpha 3, dgm 2, the six
+# geometry and opacity sums 26, the four alpha dN sums 8, the W sum 2
+OIT_BWD_OPS_PER_KEPT = 55
+
+
+def phase_oit_render(device):
+    """The full-width render in OIT mode through `render` (float32 packets),
+    then a stage split and K5''s row: K5' against its twin on 64 seeded
+    tiles (the twin on the whole frame gives its time and the evaluated and
+    kept pair counts)."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
+    from gsplat_tpu_torch.render import grid_dims, render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    t0 = time.perf_counter()
+    params, alive, camera = tiny_scene(**FULL, device=device)
+    settings = make_render_settings(sh_degree=3, packet_dtype="float32", blend_mode="oit")
+    bg = [0.0, 0.0, 0.0]
+    setup_s = time.perf_counter() - t0
+
+    # --- the OIT render path: counts reset just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    frame_ms = []
+    for i in range(WARMUP + TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = render(camera, params, alive, settings, bg, device=DEVICE)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_counts()
+    check_counts(launches, OIT_RENDER_KERNELS, WARMUP + TIMED, "OIT render path")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    img = out["render"]
+    check(img.shape == (FULL["height"], FULL["width"], 3), "OIT image shape")
+    check(bool(torch.isfinite(img).all()), "OIT image has non-finite values")
+    check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, "OIT image outside [0, 1]")
+    check(float(img.std()) > 0.01, "OIT image is flat")
+
+    profile = device_profile(lambda: render(camera, params, alive, settings, bg, device=DEVICE))
+
+    # --- sorted and OIT frames in turns in one loop: the two paths' frame
+    # times without the host's drift between phases
+    turns = {"sorted": [], "oit": []}
+    for _ in range(TIMED // 2):
+        for mode in turns:
+            st = settings if mode == "oit" else make_render_settings(sh_degree=3)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            render(camera, params, alive, st, bg, device=DEVICE)
+            torch.cuda.synchronize()
+            turns[mode].append((time.perf_counter() - t) * 1e3)
+
+    # --- per-stage breakdown of the same frame
+    gx, gy = grid_dims(camera, 16)
+    num_tiles = gx * gy
+    bg_t = torch.zeros(3, device=device)
+    stages = ("preprocess", "binning", "K5_oit_blend", "composite")
+    stage_ms = {s: [] for s in stages}
+    for i in range(WARMUP + TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        screen, _, _ = screen_of((params, alive, camera), settings, device)
+        ev[1].record()
+        pb = tb.pack_bins(screen, gx, gy)
+        ev[2].record()
+        args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
+        raw = rc.blend_oit_fwd(*args)
+        ev[3].record()
+        final_t = raw[:, :, 5]
+        w = (1.0 - final_t) / torch.clamp(raw[:, :, 4], min=1e-8)
+        color = raw[:, :, 0:3] * w[..., None] + final_t[..., None] * bg_t[None, None, :]
+        image = torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            for j, s in enumerate(stages):
+                stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
+    check(torch.equal(image, img), "stage-by-stage OIT frame differs from render()")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain, evaluated, kept = rc.blend_oit_packed_torch(*args, count_pairs=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    sel = torch.as_tensor(np.random.default_rng(0).choice(num_tiles, CHECK_TILES, replace=False),
+                          device=device)
+    nd_rel, t_err = oit_errors(raw[sel], plain[sel])
+    check(nd_rel < OIT_REL and t_err <= ATOL,
+          f"K5' on 64 frame tiles: N/D rel err {nd_rel}, T abs err {t_err}")
+    full_nd, full_t = oit_errors(raw, plain)
+    k5_ms = cuda_time(lambda: rc.blend_oit_fwd(*args), 20)
+    k = pb.num_instances
+    # K5': 10 table rows per instance + 2 ranges per tile in; (T, 256, 8) out
+    k5_bound = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 32,
+                     evaluated * BLEND_OPS_PER_PAIR + kept * OIT_FWD_OPS_PER_KEPT)
+    summary = {
+        "gaussians": FULL["n"], "size": f"{FULL['width']}x{FULL['height']}", "instances": k,
+        "evaluated_pairs": evaluated, "kept_pairs": kept, "setup_s": setup_s,
+        "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
+        "frames_in_turns_ms_median": {m: statistics.median(v) for m, v in turns.items()},
+        "device_profile": profile,
+        "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
+        "launches": launches, "peak_mem_gib": peak_gib, "k5_check_tiles": CHECK_TILES,
+        "k5_full_frame": {"nd_max_rel_err": full_nd, "t_max_abs_err": full_t,
+                          "bitwise_equal": bool(torch.equal(raw, plain))},
+    }
+    row = measured(k5_ms, plain_ms, k5_bound, float((raw[sel] - plain[sel]).abs().max()), nd_rel,
+                   evaluated_pairs=evaluated, kept_pairs=kept, t_max_abs_err=t_err)
+    return summary, {"oit_fwd": row}
 
 
 def write_blender_scene(root: Path, size=800, n=200_000, seed=0):
@@ -677,10 +991,11 @@ class StageMarks:
         return self.events[a].elapsed_time(self.events[b])
 
 
-def phase_train(device):
+def phase_train(device, blend_mode="sorted"):
     """The train path at full width: the flagship scene through
-    `make_train_step` in hybrid mode; then the stage split, the busy share,
-    and K3', K4' and the hybrid K1' pack at the train frame's shapes."""
+    `make_train_step` in hybrid mode, with the sorted or the OIT blend; then
+    the stage split, the busy share, and the kernel rows at the train
+    frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
     from gsplat_tpu_torch.config import OptimizationConfig
     from gsplat_tpu_torch.convert import PARAM_FIELDS
     from gsplat_tpu_torch.core.types import make_render_settings
@@ -694,7 +1009,8 @@ def phase_train(device):
 
     t0 = time.perf_counter()
     module, alive0, camera = tiny_scene(**FULL, device=device)
-    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid")
+    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid", blend_mode=blend_mode)
+    oit = blend_mode == "oit"
     bg = torch.zeros(3, device=device)
     with torch.no_grad():  # the target: the unperturbed scene's render
         target = render(camera, module, alive0, settings, bg, device=DEVICE)["render"]
@@ -727,7 +1043,8 @@ def phase_train(device):
             step_ms.append((time.perf_counter() - t) * 1e3)
         loss.append(float(metrics["loss"]))
     launches = read_counts()
-    check_counts(launches, TRAIN_KERNELS, WARMUP + TIMED, "train path")
+    check_counts(launches, OIT_TRAIN_KERNELS if oit else TRAIN_KERNELS, WARMUP + TIMED,
+                 f"{blend_mode} train path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
     check(loss[-1] < loss[0], f"loss did not fall: {loss[0]} -> {loss[-1]}")
@@ -744,12 +1061,14 @@ def phase_train(device):
     profile = device_profile(one_step)
     state = holder[0]
 
-    # --- stage split, and the inputs K3', K4' and the pack get in a step
+    # --- stage split, and the inputs the blend backward (K3' or K6'), K4'
+    # and the pack get in a step
+    bwd_attr, bwd_stage = ("blend_oit_bwd", "K6_oit_bwd") if oit else ("blend_bwd", "K3_blend_bwd")
     marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
-                        (rc, "blend_bwd", "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
+                        (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None)])
     spans = (("forward", "fwd0", "fwd1"), ("loss", "fwd1", "loss1"),
-             ("loss_backward", "loss1", "k3_0"), ("K3_blend_bwd", "k3_0", "k3_1"),
+             ("loss_backward", "loss1", "k3_0"), (bwd_stage, "k3_0", "k3_1"),
              ("K4_reduce", "k3_1", "k4_1"),
              ("preprocess_backward_and_stats", "k4_1", "adam0"), ("adam", "adam0", "adam1"),
              ("dead_row_freeze", "adam1", "end"))
@@ -764,10 +1083,11 @@ def phase_train(device):
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
     k3_args, k4_args, pack_args = (marks.args[a] for a in (
-        "blend_bwd", "reduce_by_gid_cuda", "pack_instances"))
+        bwd_attr, "reduce_by_gid_cuda", "pack_instances"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
+        "blend_mode": blend_mode,
         "setup_s": setup_s, "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
         "loss_first": loss[0], "loss_last": loss[-1],
         "stage_ms_median": {k: statistics.median(v) for k, v in stage_ms.items()},
@@ -775,7 +1095,8 @@ def phase_train(device):
         "instances": int(k3_args[0].shape[1]),
     }
     with torch.no_grad():  # the saved forward output carries requires_grad
-        rows = kernel_rows_train(k3_args, k4_args, pack_args)
+        rows = (kernel_rows_oit_train(k3_args) if oit
+                else kernel_rows_train(k3_args, k4_args, pack_args))
     return summary, state, rows
 
 
@@ -821,7 +1142,7 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
 
     # the hybrid pack at the train frame against its twin, bit for bit
     keys_sorted, perm, kgid, screen, pt = pack_args[:5]
-    check(pack_args[5] is True, "the train step packs hybrid instances")
+    check(pack_args[5] == "hybrid", "the train step packs hybrid instances")
     outs = tb.pack_instances(*pack_args)
     pack_err = max_abs_diff("pack_instances (hybrid)", ("inst_t", "gauss_id", "tile_id", "bounds"),
                             outs, tb._pack_instances_torch(*pack_args))
@@ -839,6 +1160,34 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
         "reduce_by_gid": measured(k4_ms, k4_plain_ms, k4_bound, k4_err, k4_rel,
                                   library_ms=lib_ms, unrounded_rel_miss=k4_miss),
     }
+
+
+def kernel_rows_oit_train(k6_args):
+    """K6' on the inputs one OIT train step gave it: against its twin on the
+    whole frame (per-row max relative error below 1e-5; the twin's one call
+    is timed), its time and its bound from the frame's evaluated and kept
+    pairs."""
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+
+    inst_t, starts, ends, gx, gy, fwd, dout = k6_args
+    k, num_tiles = inst_t.shape[1], gx * gy
+    got = rc.blend_oit_bwd(*k6_args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = rc.blend_oit_bwd_packed_torch(*k6_args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    rel = per_row_rel_err(got, want)
+    check(rel < ROW_REL, f"K6' on the OIT train frame: per-row max rel err {rel}")
+    _, evaluated, kept = rc.blend_oit_packed_torch(inst_t, starts, ends, gx, gy, count_pairs=True)
+    ms = cuda_time(lambda: rc.blend_oit_bwd(*k6_args), 20)
+    # K6': 10 table rows per instance + 2 ranges per tile + T_final and the
+    # cotangents of N0..3, D and T per pixel in; 10 rows per instance out
+    bnd = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 28 + k * 40,
+                evaluated * BLEND_OPS_PER_PAIR + kept * OIT_BWD_OPS_PER_KEPT)
+    return {"oit_bwd": measured(ms, plain_ms, bnd, float((got - want).abs().max()), rel,
+                                evaluated_pairs=evaluated, kept_pairs=kept,
+                                bitwise_equal=bool(torch.equal(got, want)))}
 
 
 def phase_densify(state):
@@ -875,16 +1224,20 @@ def phase_densify(state):
     return {"grad_threshold": thr, "alive_before": before, **info, "ms": ms}
 
 
-def phase_train_cli():
+def phase_train_cli(blend_mode="sorted"):
     """The train CLI on a seeded 3-view Blender scene (densification forced
-    into the first iterations), then the render CLI on the saved model;
-    counts reset just before each and read just after."""
+    into the first iterations), then the render CLI on the saved model,
+    both with `--blend_mode`; counts reset just before each and read just
+    after."""
     from PIL import Image
 
     from gsplat_tpu_torch.cli import render as render_cli
     from gsplat_tpu_torch.cli import train as train_cli
     from gsplat_tpu_torch.io.snapshot import load_snapshot
 
+    mode = ["--blend_mode", blend_mode]
+    train_kernels, render_kernels = ((OIT_TRAIN_KERNELS, OIT_RENDER_KERNELS) if blend_mode == "oit"
+                                     else (TRAIN_KERNELS, RENDER_KERNELS))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         src, _ = write_blender_scene(Path(tmp), size=CLI["size"], n=1000)
         model = Path(tmp) / "trained"
@@ -895,17 +1248,19 @@ def phase_train_cli():
             "--densify_from_iter", "5", "--densification_interval", "10",
             "--densify_until_iter", str(CLI_ITERS), "--opacity_reset_interval", "20",
             "--densify_grad_threshold", "1e-7", "--device", DEVICE, "--quiet",
-            "--disable_viewer"])
+            "--disable_viewer", *mode])
         train_s = time.perf_counter() - t
         train_launches = read_counts()
         check(rc_ == 0, "train CLI returned non-zero")
-        check_counts(train_launches, TRAIN_KERNELS, CLI_ITERS, f"train CLI, {CLI_ITERS} iterations")
+        check_counts(train_launches, train_kernels, CLI_ITERS,
+                     f"{blend_mode} train CLI, {CLI_ITERS} iterations")
         _, alive, it, _ = load_snapshot(str(model), device=DEVICE)
         n_saved = int(alive.sum())
         check(it == CLI_ITERS and n_saved > 100_000, f"saved snapshot: iteration {it}, {n_saved} rows")
 
         reset_counts()
-        rc_ = render_cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet"])
+        rc_ = render_cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet",
+                               *mode])
         render_launches = read_counts()
         check(rc_ == 0, "render CLI returned non-zero on the trained model")
         pngs = sorted((model / "train" / f"ours_{CLI_ITERS}" / "renders").iterdir())
@@ -919,8 +1274,9 @@ def phase_train_cli():
             stds.append(float(a.std()))
             check(a.shape == (CLI["size"], CLI["size"], 3) and a.max() > a.min() and a.max() > 0,
                   f"{p.name}: blank or misshapen image of the trained model")
-        check_counts(render_launches, RENDER_KERNELS, 3, "render CLI on the trained model")
-    return {"iterations": CLI_ITERS, "train_s": train_s, "saved_gaussians": n_saved,
+        check_counts(render_launches, render_kernels, 3,
+                     f"{blend_mode} render CLI on the trained model")
+    return {"blend_mode": blend_mode, "iterations": CLI_ITERS, "train_s": train_s, "saved_gaussians": n_saved,
             "render_std": stds, "train_launches": train_launches,
             "render_launches": render_launches}
 
@@ -939,14 +1295,21 @@ KERNEL_ROWS = (
      "gsplat_tpu/ops/rasterize_pallas.py:605"),
     ("reduce_by_gid", "train", "gsplat_tpu_torch/csrc/reduce.cu",
      "gsplat_tpu/ops/reduce.py:50"),
+    ("pack_instances_bf16", "bf16_render", "gsplat_tpu_torch/csrc/binning.cu",
+     "gsplat_tpu/ops/binning.py:485"),
+    ("oit_fwd", "oit_train", "gsplat_tpu_torch/csrc/rasterize_oit.cu",
+     "gsplat_tpu/ops/rasterize_pallas.py:897"),
+    ("oit_bwd", "oit_train", "gsplat_tpu_torch/csrc/rasterize_oit.cu",
+     "gsplat_tpu/ops/rasterize_pallas.py:974"),
 )
 
 
 def kernels_line(measures, launches_by_path):
     """One row per kernel: `launches` is the count `read_counts` took on
-    the path named in KERNEL_ROWS (the train path is this slice's main
-    path; float32 packets are packed on the render path), with every
-    path's count beside it."""
+    the path named in KERNEL_ROWS (each slice's main path: the train path,
+    the OIT train path; float32 packets are packed on the render path and
+    bf16 ones on the bf16 render path), with every path's count beside
+    it."""
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         by_path = {p: counts[name] for p, counts in launches_by_path.items()}
@@ -979,10 +1342,22 @@ def main() -> int:
         t = time.perf_counter()
         emit(phase="k3_vs_plain", cases=phase_blend_bwd(device), seconds=time.perf_counter() - t)
         t = time.perf_counter()
+        emit(phase="k5_vs_plain", cases=phase_oit_blend(device), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit(phase="k6_vs_plain", cases=phase_oit_bwd(device), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
         render_summary, measures = phase_main_path(device)
         emit(phase="render_path", **render_summary, seconds=time.perf_counter() - t)
         t = time.perf_counter()
         emit(phase="render_cli", **phase_cli(), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        oit_render_summary, oit_rows = phase_oit_render(device)
+        emit(phase="oit_render_path", **oit_render_summary, seconds=time.perf_counter() - t)
+        measures.update(oit_rows)
+        t = time.perf_counter()
+        bf16_summary, bf16_rows = phase_bf16(device)
+        emit(phase="bf16_packets", **bf16_summary, seconds=time.perf_counter() - t)
+        measures.update(bf16_rows)
 
     t = time.perf_counter()
     train_summary, state, train_measures = phase_train(device)
@@ -996,10 +1371,20 @@ def main() -> int:
     emit(phase="densify", **phase_densify(state), seconds=time.perf_counter() - t)
     del state
     t = time.perf_counter()
-    emit(phase="train_cli", **phase_train_cli(), seconds=time.perf_counter() - t)
+    oit_train_summary, state, oit_train_rows = phase_train(device, "oit")
+    emit(phase="oit_train_path", **oit_train_summary, seconds=time.perf_counter() - t)
+    measures.update(oit_train_rows)
+    del state
+    for mode in ("sorted", "oit"):
+        t = time.perf_counter()
+        emit(phase="train_cli" if mode == "sorted" else "train_cli_oit",
+             **phase_train_cli(mode), seconds=time.perf_counter() - t)
 
     rows = kernels_line(measures, {"train": train_summary["launches"],
-                                   "render": render_summary["launches"]})
+                                   "render": render_summary["launches"],
+                                   "oit_train": oit_train_summary["launches"],
+                                   "oit_render": oit_render_summary["launches"],
+                                   "bf16_render": bf16_summary["launches"]})
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce")
+SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,6 +54,10 @@ _SIGNATURES = {
     },
     "reduce": {
         "gs_reduce_by_gid": (_P, _P, _LL, _LL, _I, _I, _P, _P),
+    },
+    "rasterize_oit": {
+        "gs_oit_fwd": (_P, _LL, _P, _P, _I, _I, _P, _P),
+        "gs_oit_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P),
     },
 }
 

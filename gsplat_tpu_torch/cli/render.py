@@ -6,10 +6,12 @@ the same flags and output layout, `{model}/{train,test}/ours_{iter}/
 
     python -m gsplat_tpu_torch.cli.render -m MODEL -s SCENE [--device cuda]
 
-The TPU-only pipeline flags (`--backend`, `--instance_capacity`,
-`--max_per_tile`, `--capacity`, `--exchange_capacity`, `--packet_dtype`) are
-accepted and have no effect; `--mesh` and `--blend_mode oit` are refused
-until their slices are ported.
+`--blend_mode oit` renders through the OIT kernels (K5'). The TPU-only
+pipeline flags (`--backend`, `--instance_capacity`, `--max_per_tile`,
+`--capacity`, `--exchange_capacity`) are accepted and have no effect, and so
+is `--packet_dtype`: views render with float32 packets, as the top-level
+`render.py` renders them. `--mesh` is refused until the multi-device slice
+is ported.
 """
 
 from __future__ import annotations

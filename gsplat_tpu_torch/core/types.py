@@ -97,15 +97,16 @@ class RenderSettings:
     sh_degree: int = 3
     backend: str = "jnp"
     # "float32" (parity) | "hybrid" (conic, opacity, rgb rows and the
-    # backward's gradient rows rounded to bf16; positions and invz exact);
-    # all-bf16 packets are not ported
+    # backward's gradient rows rounded to bf16; positions and invz exact) |
+    # "bfloat16" (all ten rows and the gradient rows rounded to bf16)
     packet_dtype: str = "float32"
     # drop (gaussian, tile) instances whose max alpha over the tile is
     # provably < 1/255 (see ops/binning.compute_row_runs)
     tight_cull: bool = True
     # per-pixel 1-based index of the last blended instance
     track_contrib: bool = False
-    # "sorted" only in this slice; "oit" comes with its kernels later
+    # "sorted" (front-to-back, reference parity) | "oit" (order-independent
+    # weighted sums, kernels K5' and K6')
     blend_mode: str = "sorted"
 
 

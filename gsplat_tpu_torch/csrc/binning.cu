@@ -21,12 +21,15 @@
 //                        columns into the (16, K) float32 instance table
 //                        (conic pre-folded to [-a/2, -b, -c/2], invz =
 //                        1/max(depth, 0.2)) and writes the tile boundaries.
-//                        With `hybrid` (the training default packet mode,
-//                        binning.py:737-795) the folded conic, opacity and
-//                        rgb rows 2-8 are rounded to bf16 (nearest even)
-//                        and stored as float32, after the fold, as the JAX
-//                        package's bf16 pair packing leaves them; mean2d
-//                        and invz stay exact.
+//                        `mode` is the packet mode: 0 float32 (every row
+//                        exact); 1 hybrid (the training default,
+//                        binning.py:737-795), the folded conic, opacity and
+//                        rgb rows 2-8 rounded to bf16 (nearest even) after
+//                        the fold, as the JAX package's bf16 pair packing
+//                        leaves them, mean2d and invz exact; 2 bfloat16
+//                        (binning.py:743-746), all ten rows rounded,
+//                        mean2d and invz (computed in float32 first)
+//                        included. Rounded values are stored as float32.
 //
 // Bound on the card: bytes. Both kernels do a few integer operations per
 // byte they move. Expand writes 12 bytes per instance with neighbouring
@@ -109,7 +112,7 @@ __global__ void pack_instances_kernel(
     const float* __restrict__ opacity,          // (N,)
     const float* __restrict__ rgb,              // (N, 3)
     const float* __restrict__ depth,            // (N,)
-    long long k, int num_tiles, int hybrid,
+    long long k, int num_tiles, int mode,
     float* __restrict__ inst_t,                 // (16, K)
     int* __restrict__ gauss_id,                 // (K,)
     int* __restrict__ tile_id,                  // (K,)
@@ -130,17 +133,17 @@ __global__ void pack_instances_kernel(
     const int g = gids[perm[i]];
     gauss_id[i] = g;
     tile_id[i] = cur;
-    const float d = depth[g];
-    inst_t[0 * k + i] = mean2d[2 * g + 0];
-    inst_t[1 * k + i] = mean2d[2 * g + 1];
-    float vals[7] = {
+    const float vals[10] = {
+        mean2d[2 * g + 0], mean2d[2 * g + 1],
         -0.5f * conic[3 * g + 0], -conic[3 * g + 1], -0.5f * conic[3 * g + 2],
         opacity[g], rgb[3 * g + 0], rgb[3 * g + 1], rgb[3 * g + 2],
+        1.0f / fmaxf(depth[g], 0.2f),
     };
 #pragma unroll
-    for (int r = 0; r < 7; ++r)
-        inst_t[(2 + r) * k + i] = hybrid ? gs::round_bf16(vals[r]) : vals[r];
-    inst_t[9 * k + i] = 1.0f / fmaxf(d, 0.2f);
+    for (int r = 0; r < 10; ++r) {
+        const bool rounded = mode == 2 || (mode == 1 && r >= 2 && r <= 8);
+        inst_t[r * k + i] = rounded ? gs::round_bf16(vals[r]) : vals[r];
+    }
 #pragma unroll
     for (int r = 10; r < N_ROWS; ++r) inst_t[r * k + i] = 0.0f;
 }
@@ -164,7 +167,7 @@ extern "C" int gs_expand_instances(
 extern "C" int gs_pack_instances(
     const void* keys_sorted, const void* perm, const void* gids, const void* mean2d,
     const void* conic, const void* opacity, const void* rgb, const void* depth,
-    long long k, int num_tiles, int hybrid, void* inst_t, void* gauss_id,
+    long long k, int num_tiles, int mode, void* inst_t, void* gauss_id,
     void* tile_id, void* bounds, void* stream)
 {
     const int threads = 256;
@@ -172,7 +175,7 @@ extern "C" int gs_pack_instances(
     pack_instances_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const long long*)keys_sorted, (const long long*)perm, (const int*)gids,
         (const float*)mean2d, (const float*)conic, (const float*)opacity,
-        (const float*)rgb, (const float*)depth, k, num_tiles, hybrid, (float*)inst_t,
+        (const float*)rgb, (const float*)depth, k, num_tiles, mode, (float*)inst_t,
         (int*)gauss_id, (int*)tile_id, (int*)bounds);
     return (int)cudaGetLastError();
 }

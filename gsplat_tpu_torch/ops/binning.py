@@ -23,8 +23,13 @@ Packet modes (`packet_dtype`): "float32" stores every row exactly;
 "hybrid", the training default, rounds the folded conic, opacity and rgb
 rows 2-8 to bf16 (nearest even) after the fold and stores them as float32,
 as the JAX package's bf16 pair packing leaves them (`binning.py:737-795`);
-mean2d and invz stay exact. All-bf16 packets are not ported (the JAX
-package calls them forward-only, `config.py:82-84`).
+mean2d and invz stay exact. "bfloat16" rounds all ten rows, mean2d and
+invz = 1/max(depth, 0.2) (computed per gaussian in float32) included, as
+the JAX package's all-bf16 packets hold them (`binning.py:743-746`).
+Deliberate difference: the rounded values are stored in the float32 table,
+so the blends compute exactly what the JAX kernels compute after
+`blk.astype(float32)`; a table stored in bf16 (half the bytes) is later
+performance work.
 
 `compute_row_runs`, the prefix sum and the sort stay in plain PyTorch, as
 the JAX package leaves them to XLA (`torch.sort(stable=True)` stands in for
@@ -349,17 +354,29 @@ def round_bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles, hybrid=False):
+# packet_dtype -> the pack kernel's mode, and the table rows each mode
+# rounds to bf16
+PACKET_MODES = {"float32": 0, "hybrid": 1, "bfloat16": 2}
+_ROUNDED_ROWS = {"float32": slice(0, 0), "hybrid": slice(2, 9), "bfloat16": slice(0, 10)}
+
+
+def _check_packet_dtype(packet_dtype: str) -> None:
+    if packet_dtype not in PACKET_MODES:
+        raise ValueError(f"packet_dtype={packet_dtype!r}: expected one of {sorted(PACKET_MODES)}")
+
+
+def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="float32"):
     """Plain twin of `pack_instances`: (inst_t (16, K), gauss_id, tile_id,
     bounds (T+1,)) from the sorted keys and the sort permutation."""
+    _check_packet_dtype(packet_dtype)
     k = keys_sorted.shape[0]
     dev = keys_sorted.device
     gauss_id = gid[perm]
     tile_id = (keys_sorted >> 32).to(torch.int32)
     inst_t = torch.zeros((N_ROWS, k), dtype=torch.float32, device=dev)
     inst_t[:10] = _gaussian_columns(screen)[:, gauss_id.long()]
-    if hybrid:
-        inst_t[2:9] = round_bf16(inst_t[2:9])
+    rows = _ROUNDED_ROWS[packet_dtype]
+    inst_t[rows] = round_bf16(inst_t[rows])
     bounds = torch.searchsorted(
         tile_id, torch.arange(num_tiles + 1, device=dev, dtype=torch.int32)
     ).to(torch.int32)
@@ -409,16 +426,17 @@ def expand_instances(rect, cum_excl, trimmed, t_lo, cum_run, depth, total,
 expand_instances.launches = 0
 
 
-def pack_instances(keys_sorted, perm, gid, screen, num_tiles, hybrid=False):
+def pack_instances(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="float32"):
     """Kernel K1', launch 2: instance table + tile boundaries on the card.
 
-    Same contract as `_pack_instances_torch`, `hybrid` included. CUDA
-    tensors only.
+    Same contract as `_pack_instances_torch`, every packet mode included.
+    CUDA tensors only.
     """
     from gsplat_tpu_torch import _kernels
 
     if not keys_sorted.is_cuda:
         raise ValueError("pack_instances launches a CUDA kernel: tensors must be on a CUDA device")
+    _check_packet_dtype(packet_dtype)
     mean2d = screen.mean2d.contiguous()
     conic = screen.conic.contiguous()
     opacity = screen.opacity.contiguous()
@@ -440,33 +458,25 @@ def pack_instances(keys_sorted, perm, gid, screen, num_tiles, hybrid=False):
     err = lib.gs_pack_instances(
         keys_sorted.data_ptr(), perm.data_ptr(), gid.data_ptr(),
         mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), k, num_tiles, int(hybrid),
+        depth.data_ptr(), k, num_tiles, PACKET_MODES[packet_dtype],
         inst_t.data_ptr(), gauss_id.data_ptr(), tile_id.data_ptr(), bounds.data_ptr(),
         _kernels.stream(dev),
     )
     _kernels.check(err, "pack_instances")
     pack_instances.launches += 1
-    pack_instances.launches_hybrid += int(hybrid)
+    pack_instances.launches_hybrid += packet_dtype == "hybrid"
+    pack_instances.launches_bf16 += packet_dtype == "bfloat16"
     return inst_t, gauss_id, tile_id, bounds
 
 
-# all launches, and those of them with hybrid packets
+# all launches, and those of them with hybrid and with bf16 packets
 pack_instances.launches = 0
 pack_instances.launches_hybrid = 0
-
-
-def _hybrid(packet_dtype: str) -> bool:
-    if packet_dtype not in ("float32", "hybrid"):
-        raise NotImplementedError(
-            f"packet_dtype={packet_dtype!r}: only float32 and hybrid packets are "
-            "ported (all-bf16 packets are forward-only in the JAX package)"
-        )
-    return packet_dtype == "hybrid"
+pack_instances.launches_bf16 = 0
 
 
 def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, expand, pack) -> PackedBins:
     num_tiles = grid_x * grid_y
-    hybrid = _hybrid(packet_dtype)
     screen = screen.detach()
     rect, cum_excl, trimmed, t_lo, cum_run, total = _emission_tables(
         screen, tile, tight_cull
@@ -474,7 +484,8 @@ def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, expand, pack) 
     keys, gid = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen.depth,
                        total, grid_x, tight_cull)
     keys_sorted, perm = torch.sort(keys, stable=True)
-    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, screen, num_tiles, hybrid)
+    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, screen, num_tiles,
+                                             packet_dtype)
     return PackedBins(
         inst_t=inst_t,
         gauss_id=gauss_id,

@@ -1,7 +1,8 @@
-"""The differentiable sorted blend on the card: kernels K2' and K3'.
+"""The differentiable tile blend on the card: kernels K2', K3', K5' and K6'.
 
 Counterpart of `gsplat_tpu/ops/rasterize_pallas.py` (`blend_tiles_pallas`,
-sorted mode, and its custom VJP `_make_blend_vjp`, :1193-1246).
+its sorted custom VJP `_make_blend_vjp`, :1193-1246, and its OIT custom VJP
+`_make_oit_vjp`, :1138-1180).
 
 - Forward: K2' `blend_fwd` (`csrc/rasterize_fwd.cu`, replacing the Pallas
   `_fwd_kernel`, `rasterize_pallas.py:368`), plain twin
@@ -18,11 +19,22 @@ sorted mode, and its custom VJP `_make_blend_vjp`, :1193-1246).
   table, ranges and gauss_id (no slot mask: see `BlendFunction`). Its
   backward returns d mean2d,
   d conic in the true (unfolded) basis, d opacity, d rgb and d invz.
+- The OIT mode (`blend_mode="oit"`): K5' `blend_oit_fwd` and K6'
+  `blend_oit_bwd` (`csrc/rasterize_oit.cu`, replacing `_oit_fwd_kernel`,
+  :897, and `_oit_bwd_kernel`, :974), plain twins `blend_oit_packed_torch`
+  and `blend_oit_bwd_packed_torch`, wrapped by `OITBlendFunction`. The
+  kernels compute the raw per-pixel sums [N0..N3, D, T, 0, 0]; the
+  quotient N / max(D, 1e-8) * (1 - T) is composed in plain torch
+  (`blend_tiles_cuda`), so autograd differentiates it, as
+  `rasterize_pallas.py:1306-1324` does.
 
-On CUDA tensors the kernels run; on CPU tensors the twins, which walk every
-tile's range one instance at a time, batched over tiles and pixels, with
-the kernels' arithmetic in the kernels' order: the forwards agree to the
-rounding of `exp`, the backwards to the order of the per-pixel sums.
+On CUDA tensors the kernels run; on CPU tensors the twins, which compute
+the kernels' arithmetic in the kernels' order. The forward twins walk every
+tile's range one instance at a time, batched over tiles and pixels: they
+agree with the kernels to the rounding of `exp` and `log1p`. The sorted
+backward's twin sums each row over the tile's pixels in another order than
+K3''s shuffles; the OIT backward's twin walks the 256 pixels in K6''s order,
+batched over instances.
 """
 
 from __future__ import annotations
@@ -108,21 +120,32 @@ def blend_packed_torch(
     return out
 
 
-def blend_fwd(inst_t, tile_start, tile_end, grid_x, grid_y, track_contrib=False):
-    """Kernel K2' on the card: same contract as `blend_packed_torch`.
-    CUDA tensors only."""
-    from gsplat_tpu_torch import _kernels
-
+def _kernel_inputs(what, inst_t, tile_start, tile_end, grid_x, grid_y, *per_pixel):
+    """A blend kernel's inputs, checked and made contiguous: the instance
+    table, the int32 ranges and any (T, 256, 8) per-pixel tensors (the
+    forward output and its cotangent). CUDA tensors only."""
     if not inst_t.is_cuda:
-        raise ValueError("blend_fwd launches a CUDA kernel: tensors must be on a CUDA device")
+        raise ValueError(f"{what} launches a CUDA kernel: tensors must be on a CUDA device")
     if inst_t.dtype != torch.float32 or inst_t.dim() != 2 or inst_t.shape[0] < 10:
         raise ValueError(f"inst_t must be (16, K) float32, got {tuple(inst_t.shape)} {inst_t.dtype}")
     num_tiles = grid_x * grid_y
     if tile_start.shape != (num_tiles,) or tile_end.shape != (num_tiles,):
         raise ValueError("tile_start/tile_end must be (grid_x * grid_y,)")
-    inst_t = inst_t.contiguous()
-    tile_start = tile_start.to(torch.int32).contiguous()
-    tile_end = tile_end.to(torch.int32).contiguous()
+    for name, t in zip(("fwd", "dout"), per_pixel):
+        if t.shape != (num_tiles, PPT, 8) or t.dtype != torch.float32 or t.device != inst_t.device:
+            raise ValueError(f"{name} must be ({num_tiles}, {PPT}, 8) float32 on {inst_t.device}")
+    return (inst_t.contiguous(), tile_start.to(torch.int32).contiguous(),
+            tile_end.to(torch.int32).contiguous(), *(t.contiguous() for t in per_pixel))
+
+
+def blend_fwd(inst_t, tile_start, tile_end, grid_x, grid_y, track_contrib=False):
+    """Kernel K2' on the card: same contract as `blend_packed_torch`.
+    CUDA tensors only."""
+    from gsplat_tpu_torch import _kernels
+
+    inst_t, tile_start, tile_end = _kernel_inputs(
+        "blend_fwd", inst_t, tile_start, tile_end, grid_x, grid_y)
+    num_tiles = grid_x * grid_y
     out = torch.empty((num_tiles, PPT, 8), dtype=torch.float32, device=inst_t.device)
     lib = _kernels.load("rasterize_fwd")
     err = lib.gs_blend_fwd(
@@ -224,27 +247,15 @@ def blend_bwd(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
     CUDA tensors only."""
     from gsplat_tpu_torch import _kernels
 
-    if not inst_t.is_cuda:
-        raise ValueError("blend_bwd launches a CUDA kernel: tensors must be on a CUDA device")
-    if inst_t.dtype != torch.float32 or inst_t.dim() != 2 or inst_t.shape[0] < 10:
-        raise ValueError(f"inst_t must be (16, K) float32, got {tuple(inst_t.shape)} {inst_t.dtype}")
-    num_tiles = grid_x * grid_y
-    if tile_start.shape != (num_tiles,) or tile_end.shape != (num_tiles,):
-        raise ValueError("tile_start/tile_end must be (grid_x * grid_y,)")
-    for name, t in (("fwd", fwd), ("dout", dout)):
-        if t.shape != (num_tiles, PPT, 8) or t.dtype != torch.float32 or t.device != inst_t.device:
-            raise ValueError(f"{name} must be ({num_tiles}, {PPT}, 8) float32 on {inst_t.device}")
+    inst_t, tile_start, tile_end, fwd, dout = _kernel_inputs(
+        "blend_bwd", inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout)
     k = inst_t.shape[1]
-    inst_t = inst_t.contiguous()
-    tile_start = tile_start.to(torch.int32).contiguous()
-    tile_end = tile_end.to(torch.int32).contiguous()
-    fwd, dout = fwd.contiguous(), dout.contiguous()
     dinst = torch.empty((10, k), dtype=torch.float32, device=inst_t.device)
     if k == 0:
         return dinst
     lib = _kernels.load("rasterize_bwd")
     err = lib.gs_blend_bwd(
-        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), num_tiles,
+        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), grid_x * grid_y,
         grid_x, fwd.data_ptr(), dout.data_ptr(), dinst.data_ptr(),
         _kernels.stream(inst_t.device),
     )
@@ -291,6 +302,189 @@ class BlendFunction(torch.autograd.Function):
                 None, None, None, None, None, None, None, None)
 
 
+def blend_oit_packed_torch(inst_t, tile_start, tile_end, grid_x, grid_y, count_pairs=False):
+    """Plain twin of K5': (T, 256, 8) float32 raw OIT sums
+    [N0, N1, N2, N3, D, T, 0, 0] from the packed instances.
+
+    Walks every tile's whole range (no early stop), batched over tiles and
+    pixels, adding each kept pair's terms in K5''s order. With
+    `count_pairs`, also returns the number of (pixel, instance) pairs
+    evaluated (every pixel of a tile, every instance of its range) and the
+    number kept.
+    """
+    dev = inst_t.device
+    num_tiles = grid_x * grid_y
+    pix = tile_pixel_coords(grid_x, grid_y, 16, dev)
+    px, py = pix[..., 0], pix[..., 1]  # (T, 256)
+    start = tile_start.long()
+    length = (tile_end - tile_start).long()
+    max_len = int(length.max()) if num_tiles else 0
+    k = inst_t.shape[1]
+
+    # per pixel: N0..N3, D and L = sum log1p(-alpha)
+    sums = torch.zeros((num_tiles, PPT, 6), dtype=torch.float32, device=dev)
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(max_len):
+        col = inst_t[:10, torch.clamp(start + j, max=max(k - 1, 0))]  # (10, T)
+        mx, my, ca, cb, cc, op, r, g, b, iz = (v[:, None] for v in col)
+        dx = mx - px
+        dy = my - py
+        power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
+        keep = (j < length)[:, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        aw = alpha * (iz * iz)
+        terms = torch.stack([aw * r, aw * g, aw * b, aw * iz, aw, torch.log1p(-alpha)], dim=-1)
+        sums = torch.where(keep[..., None], sums + terms, sums)
+        if count_pairs:
+            kept = kept + keep.sum()
+
+    out = torch.zeros((num_tiles, PPT, 8), dtype=torch.float32, device=dev)
+    out[..., 0:5] = sums[..., 0:5]
+    out[..., 5] = torch.exp(sums[..., 5])
+    if count_pairs:
+        return out, int(length.sum()) * PPT, int(kept)
+    return out
+
+
+def blend_oit_fwd(inst_t, tile_start, tile_end, grid_x, grid_y):
+    """Kernel K5' on the card: same contract as `blend_oit_packed_torch`.
+    CUDA tensors only."""
+    from gsplat_tpu_torch import _kernels
+
+    inst_t, tile_start, tile_end = _kernel_inputs(
+        "blend_oit_fwd", inst_t, tile_start, tile_end, grid_x, grid_y)
+    num_tiles = grid_x * grid_y
+    out = torch.empty((num_tiles, PPT, 8), dtype=torch.float32, device=inst_t.device)
+    lib = _kernels.load("rasterize_oit")
+    err = lib.gs_oit_fwd(
+        inst_t.data_ptr(), inst_t.shape[1], tile_start.data_ptr(), tile_end.data_ptr(),
+        num_tiles, grid_x, out.data_ptr(), _kernels.stream(inst_t.device),
+    )
+    _kernels.check(err, "blend_oit_fwd")
+    blend_oit_fwd.launches += 1
+    return out
+
+
+blend_oit_fwd.launches = 0
+
+
+def blend_oit_bwd_packed_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
+    """Plain twin of K6': (10, K) per-instance gradient rows of the raw OIT
+    sums, from the forward output and its cotangent (both (T, 256, 8);
+    channels 0-5 of the cotangent are dN0..3, dD and dT).
+
+    Walks the 256 pixels of a tile in K6''s order, batched over every
+    instance slot of every range, with K6''s arithmetic (see
+    `csrc/rasterize_oit.cu`); slots outside every range get zero rows.
+    """
+    dev = inst_t.device
+    num_tiles = grid_x * grid_y
+    k = inst_t.shape[1]
+    length = (tile_end - tile_start).long()
+    tiles = torch.arange(num_tiles, device=dev)
+    tile_of = torch.repeat_interleave(tiles, length)  # (M,) the tile of each slot
+    first = torch.cumsum(length, 0) - length
+    slot = tile_start.long()[tile_of] + (torch.arange(tile_of.shape[0], device=dev) - first[tile_of])
+    tx = (tile_of % grid_x) * 16
+    ty = torch.div(tile_of, grid_x, rounding_mode="floor") * 16
+
+    mx, my, ca, cb, cc, op, r, gr, b, z = inst_t[:10, slot]
+    z2 = z * z
+    d = dout.reshape(num_tiles, PPT, 8)
+    # per pixel: dN0..3, dD and rT = dT * T_final
+    cot = torch.cat([d[..., 0:5], (d[..., 5] * fwd.reshape(num_tiles, PPT, 8)[..., 5])[..., None]],
+                    dim=-1)
+    acc = torch.zeros((11, slot.shape[0]), dtype=torch.float32, device=dev)
+    for p in range(PPT):
+        px = (tx + p % 16).to(torch.float32)
+        py = (ty + p // 16).to(torch.float32)
+        dx = mx - px
+        dy = my - py
+        power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        g = torch.exp(power)
+        alpha = torch.clamp(op * g, max=ALPHA_MAX)
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN)
+        dn0, dn1, dn2, dn3, dd, rt = cot[tile_of, p].T
+        kk = (((dn0 * r + dn1 * gr) + dn2 * b) + dn3 * z) + dd
+        inv_one_m = 1.0 / (1.0 - alpha)
+        dalpha = z2 * kk - rt * inv_one_m
+        dgm = (op * dalpha) * g
+        terms = torch.stack([
+            dgm * ((ca + ca) * dx + cb * dy),
+            dgm * ((cc + cc) * dy + cb * dx),
+            -0.5 * (dgm * dx * dx),
+            -(dgm * dx * dy),
+            -0.5 * (dgm * dy * dy),
+            g * dalpha,
+            alpha * dn0, alpha * dn1, alpha * dn2, alpha * dn3,
+            alpha * kk,
+        ])
+        acc = torch.where(keep, acc + terms, acc)
+
+    dinst = torch.zeros((10, k), dtype=torch.float32, device=dev)
+    dinst[0:6, slot] = acc[0:6]
+    dinst[6:9, slot] = z2 * acc[6:9]
+    dinst[9, slot] = (z + z) * acc[10] + z2 * acc[9]
+    return dinst
+
+
+def blend_oit_bwd(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
+    """Kernel K6' on the card: same contract as `blend_oit_bwd_packed_torch`,
+    for ranges that cover every slot. CUDA tensors only."""
+    from gsplat_tpu_torch import _kernels
+
+    inst_t, tile_start, tile_end, fwd, dout = _kernel_inputs(
+        "blend_oit_bwd", inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout)
+    k = inst_t.shape[1]
+    dinst = torch.empty((10, k), dtype=torch.float32, device=inst_t.device)
+    if k == 0:
+        return dinst
+    lib = _kernels.load("rasterize_oit")
+    err = lib.gs_oit_bwd(
+        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), grid_x * grid_y,
+        grid_x, fwd.data_ptr(), dout.data_ptr(), dinst.data_ptr(),
+        _kernels.stream(inst_t.device),
+    )
+    _kernels.check(err, "blend_oit_bwd")
+    blend_oit_bwd.launches += 1
+    return dinst
+
+
+blend_oit_bwd.launches = 0
+
+
+class OITBlendFunction(torch.autograd.Function):
+    """The OIT blend's raw sums with their hand-written backward
+    (`_make_oit_vjp`, `rasterize_pallas.py:1138-1180`).
+
+    `BlendFunction`'s arguments, so `blend_tiles_cuda` calls either one the
+    same way (`track_contrib` is ignored: OIT tracks no contributor).
+    Returns the raw sums (T, 256, 8) [N0..N3, D, T, 0, 0]: K5' on CUDA
+    tensors, its twin on CPU tensors. The backward runs K6' (or its twin)
+    and `reduce_by_gid` (K4' on the card) with `pack_bf16`.
+    """
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, rgb, invz, inst_t, tile_start, tile_end,
+                gauss_id, grid_x, grid_y, track_contrib, pack_bf16):
+        args = (inst_t, tile_start, tile_end, grid_x, grid_y)
+        out = blend_oit_fwd(*args) if inst_t.is_cuda else blend_oit_packed_torch(*args)
+        ctx.save_for_backward(out, inst_t, tile_start, tile_end, gauss_id)
+        ctx.grid = (grid_x, grid_y)
+        ctx.pack_bf16 = pack_bf16
+        ctx.n_gauss = mean2d.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
+        bwd = blend_oit_bwd if inst_t.is_cuda else blend_oit_bwd_packed_torch
+        dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
+        drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
+        return (drows[0:2].T, drows[2:5].T, drows[5], drows[6:9].T, drows[9],
+                None, None, None, None, None, None, None, None)
+
+
 def blend_tiles_cuda(
     screen: ScreenGaussians,
     bins: PackedBins,
@@ -301,31 +495,48 @@ def blend_tiles_cuda(
     blend_mode: str = "sorted",
     reduce_pack: bool = False,
 ) -> BlendOutput:
-    """Blend the sorted instance stream: `blend_tiles_pallas`, sorted mode.
+    """Blend the instance stream: `blend_tiles_pallas`, sorted or OIT mode.
 
-    Differentiable w.r.t. the screen arrays through `BlendFunction`: K2'
-    forward, K3' backward and K4' per-gaussian reduce on CUDA tensors, their
+    Differentiable w.r.t. the screen arrays through `BlendFunction` (sorted:
+    K2' forward, K3' backward) or `OITBlendFunction` (OIT: K5' forward, K6'
+    backward), with the K4' per-gaussian reduce, on CUDA tensors; their
     plain twins on CPU tensors. Without gradients (inference, or screen
-    arrays that need none) only the forward runs. `reduce_pack` rounds the per-instance
-    gradient rows to bf16 before the sum, as the hybrid packet mode does
-    (`render.py:93`).
+    arrays that need none) only the forward runs. `reduce_pack` rounds the
+    per-instance gradient rows to bf16 before the sum, as the hybrid and
+    bf16 packet modes do (`render.py`).
+
+    OIT: the kernels give the raw sums N, D and T; the quotient is composed
+    here, in plain torch, so autograd carries its gradient to the sums.
+    `n_contrib` is zero (OIT ignores `track_contrib`).
     """
     if tile * tile != PPT:
         raise ValueError("the blend kernel is built for 16x16 tiles")
-    if blend_mode != "sorted":
-        raise NotImplementedError(
-            f"blend_mode={blend_mode!r}: the OIT kernels (K5, K6) are not ported yet"
-        )
+    if blend_mode not in ("sorted", "oit"):
+        raise ValueError(f"blend_mode={blend_mode!r}: expected 'sorted' or 'oit'")
+    oit = blend_mode == "oit"
     diff = (screen.mean2d, screen.conic, screen.opacity, screen.rgb, screen.depth)
     if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
         invz = 1.0 / torch.clamp(screen.depth, min=0.2)
-        out = BlendFunction.apply(
+        fn = OITBlendFunction if oit else BlendFunction
+        out = fn.apply(
             *diff[:4], invz, bins.inst_t, bins.tile_start, bins.tile_end, bins.gauss_id,
             grid_x, grid_y, track_contrib, reduce_pack,
         )
-    else:  # serving: the forward alone, no autograd bookkeeping
+    elif oit:  # serving: the forward alone, no autograd bookkeeping
+        args = (bins.inst_t, bins.tile_start, bins.tile_end, grid_x, grid_y)
+        out = blend_oit_fwd(*args) if bins.inst_t.is_cuda else blend_oit_packed_torch(*args)
+    else:
         args = (bins.inst_t, bins.tile_start, bins.tile_end, grid_x, grid_y, track_contrib)
         out = blend_fwd(*args) if bins.inst_t.is_cuda else blend_packed_torch(*args)
+    if oit:
+        final_t = out[:, :, 5]
+        w = (1.0 - final_t) / torch.clamp(out[:, :, 4], min=1e-8)
+        return BlendOutput(
+            color=out[:, :, 0:3] * w[..., None],
+            invdepth=out[:, :, 3] * w,
+            final_t=final_t,
+            n_contrib=torch.zeros(final_t.shape, dtype=torch.int32, device=final_t.device),
+        )
     return BlendOutput(
         color=out[:, :, 0:3],
         invdepth=out[:, :, 3],

@@ -11,6 +11,10 @@ Blend semantics (`forward.cu:345-385`):
 - stop the pixel once T * (1 - alpha) < 1e-4 (that gaussian is NOT blended);
   T is monotone, so this is the prefix condition cumprod(1 - alpha) >= 1e-4
 - expected inverse depth sum(w / z)
+
+`blend_tiles_oit_torch` is the same oracle for the OIT blend mode
+(`blend_tiles_oit_jnp`): order-independent sums with the same alpha and keep
+rules.
 """
 
 from __future__ import annotations
@@ -127,6 +131,83 @@ def blend_tiles_torch(
 
     return BlendOutput(
         color=color, invdepth=invd, final_t=t_eff, n_contrib=n_contrib, overflow=overflow
+    )
+
+
+def blend_tiles_oit_torch(
+    screen: ScreenGaussians,
+    bins: TileBins,
+    grid_x: int,
+    grid_y: int,
+    tile: int,
+    max_per_tile: int,
+    chunk: int,
+) -> BlendOutput:
+    """Order-independent transmittance blend, the oracle of the OIT mode.
+
+    Port of `blend_tiles_oit_jnp` (`rasterize_jnp.py:175-266`). Per pixel,
+    commutative sums replace the front-to-back recurrence:
+
+        N = sum alpha * invz^2 * [r, g, b, invz],  D = sum alpha * invz^2,
+        T = prod (1 - alpha) = exp(sum log1p(-alpha)),
+        out = N / max(D, 1e-8) * (1 - T),  final_t = T.
+
+    The alpha and keep rules are the sorted blend's; the sums read no order.
+    Differentiable by autograd; `blend_tiles_cuda(blend_mode="oit")` is the
+    production path.
+    """
+    dev = screen.depth.device
+    num_tiles = grid_x * grid_y
+    ppt = tile * tile
+    max_per_tile = max(chunk, (max_per_tile + chunk - 1) // chunk * chunk)
+    pix = tile_pixel_coords(grid_x, grid_y, tile, dev)
+
+    lane = torch.arange(max_per_tile, dtype=torch.int32, device=dev)
+    idx = bins.tile_start[:, None] + lane[None, :]
+    in_range = idx < bins.tile_end[:, None]
+    idx = torch.clamp(idx, max=max(bins.gauss_id.shape[0] - 1, 0)).long()
+    overflow = int(torch.clamp(bins.tile_end - bins.tile_start - max_per_tile, min=0).sum())
+    inv_depth = 1.0 / torch.clamp(screen.depth, min=0.2)
+    gid_all = bins.gauss_id.long() if bins.gauss_id.numel() else torch.zeros(1, dtype=torch.long, device=dev)
+
+    numer = torch.zeros((num_tiles, ppt, 4), dtype=torch.float32, device=dev)
+    denom = torch.zeros((num_tiles, ppt), dtype=torch.float32, device=dev)
+    logt = torch.zeros((num_tiles, ppt), dtype=torch.float32, device=dev)
+
+    for base in range(0, max_per_tile, chunk):
+        g = gid_all[idx[:, base : base + chunk]]
+        m = in_range[:, base : base + chunk]
+        mean2d = screen.mean2d[g]
+        conic = screen.conic[g]
+        invz = inv_depth[g]
+
+        d = mean2d[:, None, :, :] - pix[:, :, None, :]
+        dx, dy = d[..., 0], d[..., 1]
+        a, b, c = conic[..., 0], conic[..., 1], conic[..., 2]
+        power = (
+            -0.5 * (a[:, None, :] * dx * dx + c[:, None, :] * dy * dy)
+            - b[:, None, :] * dx * dy
+        )
+        alpha_raw = screen.opacity[g][:, None, :] * torch.exp(power)
+        # the clamp at 0.99 is straight-through, as in the sorted oracle
+        alpha = alpha_raw + (torch.clamp(alpha_raw, max=ALPHA_MAX) - alpha_raw).detach()
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & m[:, None, :]
+        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
+
+        aw = alpha * (invz * invz)[:, None, :]  # (T, ppt, C)
+        feat = torch.cat([screen.rgb[g], invz[..., None]], dim=-1)  # (T, C, 4)
+        numer = numer + torch.einsum("tpc,tcx->tpx", aw, feat)
+        denom = denom + torch.sum(aw, dim=-1)
+        logt = logt + torch.sum(torch.log1p(-alpha), dim=-1)
+
+    t_final = torch.exp(logt)
+    w = (1.0 - t_final) / torch.clamp(denom, min=1e-8)
+    return BlendOutput(
+        color=numer[..., 0:3] * w[..., None],
+        invdepth=numer[..., 3] * w,
+        final_t=t_final,
+        n_contrib=torch.zeros((num_tiles, ppt), dtype=torch.int32, device=dev),
+        overflow=overflow,
     )
 
 

@@ -1,10 +1,18 @@
 """High-level renderer: counterpart of `gsplat_tpu/render.py`.
 
 One view goes through `preprocess` (plain PyTorch), `pack_bins` (kernel K1'
-plus one `torch.sort`), `blend_tiles_cuda` (kernel K2' forward; K3' and K4'
-in its backward), then the background composite, `tiles_to_image`, exposure
-and clip in plain PyTorch. Images are HWC, as in the JAX package. On a CPU
-device the kernels' plain twins run.
+plus one `torch.sort`), `blend_tiles_cuda` (sorted blend: kernel K2'
+forward, K3' and K4' in its backward; OIT blend: K5' forward, K6' and K4'
+in its backward, the quotient in plain PyTorch), then the background
+composite, `tiles_to_image`, exposure and clip in plain PyTorch. Images are
+HWC, as in the JAX package. On a CPU device the kernels' plain twins run.
+
+Every `blend_mode` ("sorted", "oit") and `packet_dtype` ("float32",
+"hybrid", "bfloat16") of the JAX package renders. With hybrid and bf16
+packets the backward rounds each per-instance gradient row to bf16 before
+the per-gaussian sum, as the JAX VJP does (`rasterize_pallas.py:1166,1232`:
+`reduce_pack` or a bf16 table). The port's table is float32 in every mode,
+so the bf16 mode has to ask for that rounding by name.
 
 The render is differentiable: gradients reach every parameter, the
 optional `mean2d_offset` (the densification signal) and the exposure, as
@@ -59,8 +67,7 @@ def render(
       camera: the view.
       params: Gaussian parameters (pre-activation).
       alive: (N,) bool live-row mask.
-      settings: render settings; float32 and hybrid packets and the sorted
-        blend are ported.
+      settings: render settings (every blend mode and packet mode).
       bg: (3,) background color.
       mean2d_offset: optional (N, 2) zeros added to the pixel centers; its
         gradient is the viewspace densification signal (pixel units).
@@ -90,7 +97,7 @@ def render(
     out = blend_tiles_cuda(
         screen, bins, gx, gy, settings.tile,
         track_contrib=settings.track_contrib, blend_mode=settings.blend_mode,
-        reduce_pack=settings.packet_dtype == "hybrid",
+        reduce_pack=settings.packet_dtype in ("hybrid", "bfloat16"),
     )
 
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)

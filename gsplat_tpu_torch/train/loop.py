@@ -46,9 +46,6 @@ def _refuse_unported(pipe, checkpoint_iterations, start_checkpoint, checkpoint_e
         raise NotImplementedError(
             "checkpoints are not ported yet (the checkpoint-and-eval slice); "
             "snapshots at saving_iterations are")
-    if pipe.blend_mode != "sorted":
-        raise NotImplementedError(
-            f"blend_mode={pipe.blend_mode!r}: the OIT kernels (K5, K6) are not ported yet")
 
 
 def _camera_batch(cam, device, cache):

@@ -86,8 +86,28 @@ def test_pack_bins_hybrid_matches_jax(seed, tight_cull):
     np.testing.assert_array_equal(rows[[0, 1, 9]], f32.inst_t.numpy()[[0, 1, 9]])
     assert (rows[2:9] != f32.inst_t.numpy()[2:9]).mean() > 0.9  # rounded
     assert not (rows[2:9].view(np.uint32) & 0xFFFF).any()  # on the bf16 grid
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tb.pack_bins(ts, gx, gy, 16, packet_dtype="bfloat16")
+    # all-bf16 packets round rows 2-8 as hybrid does and mean2d and invz too
+    bf = tb.pack_bins(ts, gx, gy, 16, tight_cull=tight_cull, packet_dtype="bfloat16")
+    np.testing.assert_array_equal(bf.inst_t.numpy()[2:9], rows[2:9])
+    np.testing.assert_array_equal(bf.inst_t[[0, 1, 9]].numpy(),
+                                  tb.round_bf16(f32.inst_t[[0, 1, 9]]).numpy())
+
+
+@pytest.mark.parametrize("seed,tight_cull", [(3, True), (7, False)])
+def test_pack_bins_bf16_matches_jax(seed, tight_cull):
+    """All-bf16 packets: all ten rows rounded to bf16 (invz computed in
+    float32 first), stored as float32. Bit for bit equal to the JAX
+    package's bf16 table cast to float32 on the live slots."""
+    js, ts, gx, gy = screen_pair(seed, 1500, tight_cull)
+    jp = jax.jit(lambda s: jb.pack_bins(s, gx, gy, CAP, 16, tight_cull=tight_cull,
+                                        packet_dtype=jnp.bfloat16))(js)
+    assert jp.inst_t.dtype == jnp.bfloat16
+    jp = jp.replace(inst_t=jp.inst_t.astype(jnp.float32))
+    tp = tb.pack_bins(ts, gx, gy, 16, tight_cull=tight_cull, packet_dtype="bfloat16")
+    assert_packed_equal(tp, jp, gx, gy)
+    assert not (tp.inst_t.numpy()[:10].view(np.uint32) & 0xFFFF).any()
+    with pytest.raises(ValueError, match="packet_dtype"):
+        tb.pack_bins(ts, gx, gy, 16, packet_dtype="float16")
 
 
 def test_pack_bins_empty_scene_matches_jax():

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from gsplat_tpu.core.types import make_render_settings
 from gsplat_tpu.ops.binning import bin_gaussians
 from gsplat_tpu.ops.projection import preprocess
-from gsplat_tpu.ops.rasterize_jnp import blend_tiles_jnp
+from gsplat_tpu.ops.rasterize_jnp import blend_tiles_jnp, blend_tiles_oit_jnp
 from gsplat_tpu.render import grid_dims
 from gsplat_tpu_torch.ops import binning as tb
 from gsplat_tpu_torch.ops.rasterize_cuda import blend_packed_torch, blend_tiles_cuda
@@ -31,7 +31,9 @@ ATOL = 2e-5
 CAP = 1 << 14
 
 
-def build(n=600, width=96, height=80, seed=3, empty=False):
+def build(n=600, width=96, height=80, seed=3, empty=False, oit=False):
+    """The port's screen, the JAX blend's output (the OIT oracle's with
+    `oit`) and the grid."""
     sc = make_test_scene(np.random.default_rng(seed), n=n, width=width,
                          height=height, sh_degree=1)
     params, camera, alive = scene_to_inputs(sc)
@@ -44,7 +46,8 @@ def build(n=600, width=96, height=80, seed=3, empty=False):
     def jax_side(params, alive):
         js = preprocess(params, alive, camera, settings, gx, gy)
         jbins = bin_gaussians(js, gx, gy, CAP)
-        return js, jbins, blend_tiles_jnp(js, jbins, gx, gy, 16, 1024, 128)
+        blend = blend_tiles_oit_jnp if oit else blend_tiles_jnp
+        return js, jbins, blend(js, jbins, gx, gy, 16, 1024, 128)
 
     js, jbins, oj = jax_side(params, alive)
     assert int(jbins.overflow) == 0
@@ -80,8 +83,15 @@ def test_blend_tiles_cuda_on_cpu_is_the_plain_twin():
     o = blend_tiles_cuda(ts, pb, gx, gy, 16, track_contrib=True)
     assert_matches(o.color.numpy(), o.invdepth.numpy(), o.final_t.numpy(),
                    o.n_contrib.numpy(), oj)
-    with pytest.raises(NotImplementedError, match="OIT"):
-        blend_tiles_cuda(ts, pb, gx, gy, 16, blend_mode="oit")
+    # the OIT mode: the K5' twin's raw sums and the quotient, against the
+    # JAX OIT oracle at its Pallas kernels' tolerance (atol 3e-5)
+    ts, oj_oit, gx, gy = build(oit=True)
+    pb = tb.pack_bins(ts, gx, gy)
+    o = blend_tiles_cuda(ts, pb, gx, gy, 16, track_contrib=True, blend_mode="oit")
+    for f in ("color", "invdepth", "final_t"):
+        np.testing.assert_allclose(getattr(o, f).numpy(), np.asarray(getattr(oj_oit, f)),
+                                   atol=3e-5, err_msg=f)
+    assert not o.n_contrib.any()
 
 
 def test_blend_tiles_torch_matches_jnp():
