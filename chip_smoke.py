@@ -9,7 +9,11 @@ Needs one CUDA card (exits non-zero without one) and `nvcc`. Prints one
 JSON line per phase:
 
 1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
-2. the kernel build (one `nvcc` per source, all at once) and its time;
+2. the kernel build (one `nvcc` per source, all at once) and its time,
+   then `sass`: each probe kernel's instruction counts from `cuobjdump
+   -sass` of the built libraries: the skeletons P1' and P2' keep their ten
+   staging stores and their barriers, and no P3'/P4' kernel spills to local
+   memory or holds fewer float instructions than one unrolled iteration;
 3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
@@ -54,15 +58,34 @@ JSON line per phase:
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
    rounded sum by more than that);
-14. one densify step and one opacity reset on the trained state;
-15. the OIT train path (`oit_train_path`): as 12 with `blend_mode="oit"`
+14. the skeleton probes (`probe_skeleton`): P1' (`skel_fwd`) on the render
+   path's K2' inputs (the flagship frame) and P2' (`skel_bwd`) on the train
+   frame's K3' inputs, each bit for bit against its twin; K2', P1', K3' and
+   P2' timed in turns on those inputs, and the skeleton share of each
+   kernel's time;
+15. one densify step and one opacity reset on the trained state;
+16. the OIT train path (`oit_train_path`): as 12 with `blend_mode="oit"`
    (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
    never), and K6' against its twin on the whole train frame;
-16. the train CLI (30 iterations, densification forced early) and the render
+17. the train CLI (30 iterations, densification forced early) and the render
    CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
    oit` (`train_cli_oit`);
-17. the kernels line: one JSON object with every kernel's launches on each
-   path, times, bound and error.
+18. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
+   and P4' at float32 and bf16, (256, 128) and (512, 128) (2000
+   iterations), each against its twin on the card (float32: within 1e-6 of
+   max |want|; bf16: within 2 bf16 ulps per element), with its time per
+   iteration, its per-SM bound, the per-op costs and the bf16 speedups;
+19. the probe path (`probe_path`): the entry points of the three probe
+   modules (`ablate.main`, `op_rate.main`, `bf16_rate.main`, as `python -m
+   gsplat_tpu_torch.probes.<name>` runs them) with the counts reset just
+   before and read just after: every probe kernel launched, no OIT kernel
+   and no hybrid or bf16 pack;
+20. the kernels line: one JSON object with every kernel's launches on each
+   path, times, bound and error; K1' to K6' count on the render and train
+   paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
+   twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
+   `_512` at 512 rows) on the probe path, with their bounds on one SM for
+   P3' and P4'. The render and train paths launch no probe kernel.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -71,7 +94,10 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +117,13 @@ FP32_FLOPS = 67e12
 # keep test: 2 subtractions, 8 for the conic quadratic, 1 compare (pairs that
 # pass do more; this is the least work the run's data needs)
 BLEND_OPS_PER_PAIR = 11
+# the P3'/P4' probes run one block: their bound is one SM's share of the
+# card's rate. bf16 outside the tensor cores: packed bf16x2 instructions at
+# twice the float32 rate (NVIDIA H100 white paper, SXM5: 133.8 TFLOP/s)
+SMS = 132
+BF16_FLOPS = 133.8e12
+PROBE_REL = 1e-6  # P3' and float32 P4' against their twins, of max |want|
+BF16_ULPS = 2  # bf16 P4' against its twin, per element
 
 DEVICE = "cuda"
 SCENE = dict(n=65_536, width=640, height=480, sh_degree=3)
@@ -126,16 +159,11 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_time(fn, reps):
-    """Mean device ms of `fn()` over `reps` calls after one warm-up call."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean device ms of `fn()` over `reps` calls after one warm-up call
+    (CUDA events around the calls)."""
+    from gsplat_tpu_torch.probes import time_ms
+
+    return time_ms(fn, reps, torch.device(DEVICE))
 
 
 # trace categories of the chrome trace that `torch.profiler` exports
@@ -208,11 +236,18 @@ def all_kernels():
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
+    from gsplat_tpu_torch.probes import ablate, bf16_rate, op_rate
 
     return {"expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
             "reduce_by_gid": rd.reduce_by_gid_cuda,
-            "oit_fwd": rc.blend_oit_fwd, "oit_bwd": rc.blend_oit_bwd}
+            "oit_fwd": rc.blend_oit_fwd, "oit_bwd": rc.blend_oit_bwd,
+            "skel_fwd": ablate.skel_fwd, "skel_bwd": ablate.skel_bwd,
+            **{f"op_{name}": w for name, w in op_rate.WRAPPERS.items()},
+            "blend_mix_f32": bf16_rate.blend_mix_f32, "blend_mix_bf16": bf16_rate.blend_mix_bf16}
+
+
+MIX_ROWS = ("blend_mix_f32", "blend_mix_bf16")  # counted apart at 512 rows
 
 
 def reset_counts():
@@ -221,19 +256,25 @@ def reset_counts():
         w.launches = 0
     kernels["pack_instances"].launches_hybrid = 0
     kernels["pack_instances"].launches_bf16 = 0
+    for name in MIX_ROWS:
+        kernels[name].launches_512 = 0
 
 
 def read_counts():
     """Launches since `reset_counts`, one entry per kernel row: the pack
     wrapper's three counters, read together, split its launches into float32
     packets (`pack_instances`), hybrid ones (`pack_instances_hybrid`) and
-    bf16 ones (`pack_instances_bf16`)."""
+    bf16 ones (`pack_instances_bf16`); P4''s `launches_512` splits each of
+    its wrappers into rows at (256, 128) and at (512, 128)."""
     kernels = all_kernels()
     counts = {name: w.launches for name, w in kernels.items()}
     pack = kernels["pack_instances"]
     counts["pack_instances"] -= pack.launches_hybrid + pack.launches_bf16
     counts["pack_instances_hybrid"] = pack.launches_hybrid
     counts["pack_instances_bf16"] = pack.launches_bf16
+    for name in MIX_ROWS:  # P4' at (256, 128) and at (512, 128)
+        counts[name] -= kernels[name].launches_512
+        counts[f"{name}_512"] = kernels[name].launches_512
     return counts
 
 
@@ -1097,7 +1138,7 @@ def phase_train(device, blend_mode="sorted"):
     with torch.no_grad():  # the saved forward output carries requires_grad
         rows = (kernel_rows_oit_train(k3_args) if oit
                 else kernel_rows_train(k3_args, k4_args, pack_args))
-    return summary, state, rows
+    return summary, state, rows, k3_args
 
 
 def kernel_rows_train(k3_args, k4_args, pack_args):
@@ -1281,6 +1322,212 @@ def phase_train_cli(blend_mode="sorted"):
             "render_launches": render_launches}
 
 
+def sass_counts(source):
+    """{kernel function: {opcode: count}} of a built library, from
+    `cuobjdump -sass`."""
+    from gsplat_tpu_torch import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(_kernels.library_path(source))],
+                         capture_output=True, text=True, timeout=120, check=True)
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            cur = counts.setdefault(head.group(1), {})
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if ins and cur is not None:
+            cur[ins.group(1)] = cur.get(ins.group(1), 0) + 1
+    return counts
+
+
+SASS_FP = ("FADD", "FMUL", "FFMA", "MUFU", "HADD2", "HMUL2", "HFMA2")
+# (part of the mangled name in libprobe_ops, least float instructions of one
+# unrolled iteration of a thread). The static count cannot show that every
+# row is computed in every iteration (a compiler may move a row's work under
+# a branch that rarely runs); the kernels rule that out by storing every row
+# unconditionally, and `phase_probe_ops` checks that none runs under its bound
+SASS_PROBES = {
+    "op_cumprod": ("elementwise_kernelILi0E", 16 * 32),
+    "op_vpu9": ("elementwise_kernelILi1E", 16 * 4 * 8),
+    "op_exp": ("elementwise_kernelILi2E", 16 * 4 * 3),
+    "op_div": ("elementwise_kernelILi3E", 16 * 4 * 3),
+    "op_cvpu": ("contract4_kernelILb0E", 16 * 4 * 7),
+    "op_cmatmul": ("contract4_kernelILb1E", 16 * 4 * 4),
+    "op_two_matmuls": ("two_matmuls_kernel", 64 * 11),
+    "op_merged": ("merged_kernel", 64 * 21),
+    "op_fwd_accum": ("fwd_accum_kernel", 32 * 5),
+    **{f"op_kappa{k}": (f"kappa_kernelILi{k}E", k * 16 * 4 * 8) for k in (1, 2, 4)},
+    "blend_mix_f32": ("blend_mix_f32_kernel", 8 * 8),
+    "blend_mix_bf16": ("blend_mix_bf16_kernel", 8 * 7),
+}
+
+
+def phase_sass():
+    """Instruction counts of the probe kernels: the skeletons keep their ten
+    staging stores (volatile, so nothing may drop them) and their barriers;
+    no P3'/P4' kernel spills, and each holds at least one unrolled
+    iteration's float instructions."""
+    libs = {src: sass_counts(src) for src in ("probe_skeleton", "probe_ops")}
+
+    def find(src, part):
+        hits = [f for f in libs[src] if part in f]
+        check(len(hits) == 1, f"{part}: {len(hits)} functions in lib{src}")
+        return libs[src][hits[0]]
+
+    out = {}
+    for name, part in (("skel_fwd", "skel_fwd_kernel"), ("skel_bwd", "skel_bwd_kernel")):
+        ops = find("probe_skeleton", part)
+        check(ops.get("STS", 0) >= 10, f"{name}: {ops.get('STS', 0)} shared stores, want the ten rows")
+        check(ops.get("BAR", 0) >= 2, f"{name}: lost its barriers")
+        out[name] = {k: ops.get(k, 0) for k in ("STS", "LDS", "LDG", "STG", "BAR", "BRA")}
+    for name, (part, body) in SASS_PROBES.items():
+        ops = find("probe_ops", part)
+        fp = sum(ops.get(k, 0) for k in SASS_FP)
+        check(fp >= body, f"{name}: {fp} float instructions, want >= {body}")
+        check(not ops.get("LDL") and not ops.get("STL"), f"{name}: spills to local memory")
+        out[name] = {"float": fp, "least": body,
+                     "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
+    return out
+
+
+def phase_probe_skeleton(device, render_instances, k3_args):
+    """P1' on the render frame's K2' inputs and P2' on the train frame's K3'
+    inputs, bit for bit against their twins; then K2', P1', K3' and P2' in
+    turns (full, skeleton, skeleton, full) on those inputs."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.probes import ablate as ab
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    params, alive, camera = tiny_scene(**FULL, device=device)
+    screen, gx, gy = screen_of((params, alive, camera), make_render_settings(sh_degree=3), device)
+    pb = tb.pack_bins(screen, gx, gy)
+    del params, alive, screen
+    check(pb.num_instances == render_instances,
+          f"flagship frame: {pb.num_instances} instances, the render path had {render_instances}")
+    fargs = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
+    got, want = ab.skel_fwd(*fargs), ab.skel_fwd_torch(*fargs)
+    check(bitwise_equal(got, want), "P1' on the flagship frame: not bit for bit its twin")
+    gotb, wantb = ab.skel_bwd(*k3_args), ab.skel_bwd_torch(*k3_args)
+    check(bitwise_equal(gotb, wantb), "P2' on the train frame: not bit for bit its twin")
+
+    turns = {"blend_fwd": [], "skel_fwd": [], "blend_bwd": [], "skel_bwd": []}
+    calls = {"blend_fwd": lambda: rc.blend_fwd(*fargs), "skel_fwd": lambda: ab.skel_fwd(*fargs),
+             "blend_bwd": lambda: rc.blend_bwd(*k3_args), "skel_bwd": lambda: ab.skel_bwd(*k3_args)}
+    for order in (("blend_fwd", "skel_fwd", "blend_bwd", "skel_bwd"),
+                  ("skel_fwd", "blend_fwd", "skel_bwd", "blend_bwd")):
+        for name in order:
+            turns[name].append(cuda_time(calls[name], 20))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    p1_plain = cuda_time(lambda: ab.skel_fwd_torch(*fargs), 3)
+    p2_plain = cuda_time(lambda: ab.skel_bwd_torch(*k3_args), 3)
+    k, num_tiles = pb.num_instances, gx * gy
+    train_k, train_tiles = k3_args[0].shape[1], k3_args[3] * k3_args[4]
+    # P1': K2''s bytes (10 rows per instance, 2 range ends per tile in, the
+    # (T, 256, 8) output out); P2': K3''s (the same in, plus the forward
+    # output and its cotangent; 10 rows per instance out). One fused
+    # multiply-add per chunk.
+    p1_bound = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 32, 2 * -(-k // 128))
+    p2_bound = bound(train_k * 80 + train_tiles * (8 + 2 * 256 * 32), 2 * -(-train_k // 128))
+    check(ms["skel_fwd"] >= p1_bound[0] and ms["skel_bwd"] >= p2_bound[0],
+          "a skeleton ran under its bound: work was skipped")
+    summary = {
+        "render_frame": {"instances": k, "tiles": num_tiles},
+        "train_frame": {"instances": train_k, "tiles": train_tiles},
+        "ms_in_turns": turns, "ms": ms,
+        "skeleton_share": {"k2": ms["skel_fwd"] / ms["blend_fwd"],
+                           "k3": ms["skel_bwd"] / ms["blend_bwd"]},
+        "math_ms": {"k2": ms["blend_fwd"] - ms["skel_fwd"], "k3": ms["blend_bwd"] - ms["skel_bwd"]},
+    }
+    rows = {"skel_fwd": measured(ms["skel_fwd"], p1_plain, p1_bound, 0.0, 0.0, bitwise_equal=True),
+            "skel_bwd": measured(ms["skel_bwd"], p2_plain, p2_bound, 0.0, 0.0, bitwise_equal=True)}
+    return summary, rows
+
+
+def phase_probe_ops(device):
+    """Every P3' variant and P4' at each dtype and shape against its twin on
+    the card, timed; bounds on one SM."""
+    from gsplat_tpu_torch.probes import bf16_rate, op_rate
+
+    rows, us = {}, {}
+    for name, v in op_rate.VARIANTS.items():
+        ins = op_rate.inputs(name, device)
+        got, want = op_rate.WRAPPERS[name](*ins), op_rate.TWINS[name](*ins)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= PROBE_REL * scale,
+              f"P3' {name}: max abs err {err} against max |want| {scale}")
+        ms = cuda_time(lambda: op_rate.WRAPPERS[name](*ins), 5)
+        plain_ms = cuda_time(lambda: op_rate.TWINS[name](*ins), 1)
+        us[name] = ms * 1e3 / op_rate.N_IT
+        bnd = (v.flops * op_rate.N_IT / (FP32_FLOPS / SMS) * 1e3, "operations")
+        check(ms >= bnd[0], f"P3' {name} ran in {ms} ms, under its bound {bnd[0]}: work was skipped")
+        rows[f"op_{name}"] = measured(ms, plain_ms, bnd, err, err / scale, label=v.label,
+                                      us_per_iteration=us[name], bound_basis="one SM",
+                                      bitwise_equal=bool(torch.equal(got, want)))
+    mix_ms = {}
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for shape in bf16_rate.SHAPES:
+            row = f"blend_mix_{key}" + ("_512" if shape[0] == 512 else "")
+            x = bf16_rate.inputs(shape, dtype, device)
+            fn = bf16_rate.WRAPPERS[dtype]
+            got, want = fn(x), bf16_rate.blend_mix_torch(x)
+            check(bool(torch.isfinite(got.float()).all()), f"P4' {row}: non-finite")
+            err = float((got.float() - want.float()).abs().max())
+            rel = float(((got.float() - want.float()).abs() / want.float().abs()).max())
+            if dtype == torch.bfloat16:
+                ulps = int((got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max())
+                check(ulps <= BF16_ULPS, f"P4' {row}: {ulps} bf16 ulps from its twin")
+            else:
+                ulps = None
+                check(rel <= PROBE_REL, f"P4' {row}: max rel err {rel}")
+            ms = cuda_time(lambda: fn(x), 10)
+            mix_ms[row] = ms
+            plain_ms = cuda_time(lambda: bf16_rate.blend_mix_torch(x), 1)
+            rate = (FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS) / SMS
+            bnd = (bf16_rate.OPS[dtype] * x.numel() * bf16_rate.K / rate * 1e3, "operations")
+            check(ms >= bnd[0], f"P4' {row} ran in {ms} ms, under its bound {bnd[0]}")
+            rows[row] = measured(ms, plain_ms, bnd, err, rel, bound_basis="one SM",
+                                 max_ulps=ulps, bitwise_equal=bool(torch.equal(got, want)),
+                                 ns_per_element_iteration=ms * 1e6 / (x.numel() * bf16_rate.K))
+    summary = {
+        "us_per_iteration": us,
+        "per_op_cost_ns": us["vpu9"] / 9 * 1e3,
+        "per_chunk_us": {k: us[f"kappa{k}"] / k for k in (1, 2, 4)},
+        "p4_ms": mix_ms,
+        "bf16_speedup_same_shape": mix_ms["blend_mix_f32"] / mix_ms["blend_mix_bf16"],
+        "bf16_speedup_512": mix_ms["blend_mix_f32_512"] / mix_ms["blend_mix_bf16_512"],
+    }
+    return summary, rows
+
+
+def phase_probe_path():
+    """The probe modules' entry points, `main()` of `ablate`, `op_rate` and
+    `bf16_rate` with their defaults (the card, the JAX scripts' sizes), with
+    the counts reset just before and read just after. Their printed lines
+    are kept; every probe kernel must have launched."""
+    from gsplat_tpu_torch.probes import ablate, bf16_rate, op_rate
+
+    reset_counts()
+    out = {}
+    for name, mod in (("ablate", ablate), ("op_rate", op_rate), ("bf16_rate", bf16_rate)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main([])
+        out[name] = {"result": res, "printed": buf.getvalue().splitlines()}
+        check(all(np.isfinite(v) and v > 0 for v in res.values() if isinstance(v, float)),
+              f"{name}.main: a time that is not finite and positive: {res}")
+    launches = read_counts()
+    for name in (row[0] for row in KERNEL_ROWS if row[1] == "probe"):
+        check(launches[name] > 0, f"probe path: {name} never launched")
+    for name in ("oit_fwd", "oit_bwd", "pack_instances_hybrid", "pack_instances_bf16"):
+        check(launches[name] == 0, f"probe path: {name} launched {launches[name]} times")
+    return out, launches
+
+
 KERNEL_ROWS = (
     # (row, path whose count is `launches`, source, TPU kernel)
     ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
@@ -1301,6 +1548,14 @@ KERNEL_ROWS = (
      "gsplat_tpu/ops/rasterize_pallas.py:897"),
     ("oit_bwd", "oit_train", "gsplat_tpu_torch/csrc/rasterize_oit.cu",
      "gsplat_tpu/ops/rasterize_pallas.py:974"),
+    ("skel_fwd", "probe", "gsplat_tpu_torch/csrc/probe_skeleton.cu", "scripts/probe_ablate2.py:32"),
+    ("skel_bwd", "probe", "gsplat_tpu_torch/csrc/probe_skeleton.cu", "scripts/probe_ablate2.py:52"),
+    *((f"op_{name}", "probe", "gsplat_tpu_torch/csrc/probe_ops.cu", f"scripts/probe_mm.py:{line}")
+      for name, line in (("cumprod", 54), ("vpu9", 69), ("exp", 79), ("div", 86), ("cvpu", 93),
+                         ("cmatmul", 104), ("two_matmuls", 114), ("merged", 129),
+                         ("fwd_accum", 141), ("kappa1", 152), ("kappa2", 152), ("kappa4", 152))),
+    *((name, "probe", "gsplat_tpu_torch/csrc/probe_ops.cu", "scripts/probe_r5_bf16vpu.py:35")
+      for name in ("blend_mix_f32", "blend_mix_f32_512", "blend_mix_bf16", "blend_mix_bf16_512")),
 )
 
 
@@ -1333,6 +1588,7 @@ def main() -> int:
     _kernels.build_all()
     emit(phase="build", seconds=time.perf_counter() - t,
          libraries=[_kernels.library_path(s).name for s in _kernels.SOURCES])
+    emit(phase="sass", kernels=phase_sass())
 
     with torch.inference_mode():
         t = time.perf_counter()
@@ -1360,7 +1616,7 @@ def main() -> int:
         measures.update(bf16_rows)
 
     t = time.perf_counter()
-    train_summary, state, train_measures = phase_train(device)
+    train_summary, state, train_measures, k3_args = phase_train(device)
     emit(phase="train_path", **train_summary, seconds=time.perf_counter() - t)
     measures.update(train_measures)
     k4 = measures["reduce_by_gid"]
@@ -1368,10 +1624,17 @@ def main() -> int:
          max_rel_err=k4["max_rel_err"], unrounded_rel_miss=k4["unrounded_rel_miss"],
          instances=train_summary["instances"], gaussians=TRAIN_CAPACITY)
     t = time.perf_counter()
+    with torch.no_grad():
+        skel_summary, skel_rows = phase_probe_skeleton(device, render_summary["instances"],
+                                                       k3_args)
+    emit(phase="probe_skeleton", **skel_summary, seconds=time.perf_counter() - t)
+    measures.update(skel_rows)
+    del k3_args
+    t = time.perf_counter()
     emit(phase="densify", **phase_densify(state), seconds=time.perf_counter() - t)
     del state
     t = time.perf_counter()
-    oit_train_summary, state, oit_train_rows = phase_train(device, "oit")
+    oit_train_summary, state, oit_train_rows, _ = phase_train(device, "oit")
     emit(phase="oit_train_path", **oit_train_summary, seconds=time.perf_counter() - t)
     measures.update(oit_train_rows)
     del state
@@ -1380,11 +1643,21 @@ def main() -> int:
         emit(phase="train_cli" if mode == "sorted" else "train_cli_oit",
              **phase_train_cli(mode), seconds=time.perf_counter() - t)
 
+    t = time.perf_counter()
+    ops_summary, ops_rows = phase_probe_ops(device)
+    emit(phase="probe_ops", **ops_summary, seconds=time.perf_counter() - t)
+    measures.update(ops_rows)
+    t = time.perf_counter()
+    probe_out, probe_launches = phase_probe_path()
+    emit(phase="probe_path", entry_points=probe_out, launches=probe_launches,
+         seconds=time.perf_counter() - t)
+
     rows = kernels_line(measures, {"train": train_summary["launches"],
                                    "render": render_summary["launches"],
                                    "oit_train": oit_train_summary["launches"],
                                    "oit_render": oit_render_summary["launches"],
-                                   "bf16_render": bf16_summary["launches"]})
+                                   "bf16_render": bf16_summary["launches"],
+                                   "probe": probe_launches})
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -31,7 +31,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit")
+SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
+           "probe_skeleton", "probe_ops")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,6 +59,20 @@ _SIGNATURES = {
     "rasterize_oit": {
         "gs_oit_fwd": (_P, _LL, _P, _P, _I, _I, _P, _P),
         "gs_oit_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P),
+    },
+    "probe_skeleton": {
+        "gs_skel_fwd": (_P, _LL, _P, _P, _I, _P, _P),
+        "gs_skel_bwd": (_P, _LL, _P, _P, _I, _P, _P, _P, _P),
+    },
+    "probe_ops": {
+        "gs_op_elementwise": (_I, _P, _P, _I, _I, _P),
+        "gs_op_contract4": (_P, _P, _P, _I, _I, _I, _P),
+        "gs_op_two_matmuls": (_P, _P, _P, _P, _P, _I, _I, _P),
+        "gs_op_merged": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "gs_op_fwd_accum": (_P, _P, _P, _I, _I, _P),
+        "gs_op_kappa": (_P, _P, _P, _I, _I, _I, _P),
+        "gs_blend_mix_f32": (_P, _P, _I, _I, _P),
+        "gs_blend_mix_bf16": (_P, _P, _I, _I, _P),
     },
 }
 
