@@ -14,18 +14,24 @@ JSON line per phase:
    -sass` of the built libraries: the skeletons P1' and P2' keep their ten
    staging stores and their barriers, and no P3'/P4' kernel spills to local
    memory or holds fewer float instructions than one unrolled iteration;
+   K2' and K3' touch no local memory (`cuobjdump -res-usage` and no
+   LDL/STL), K2' issues no shuffle and K3' at most the 31 of its
+   reduce-scatter (its registers and `SHFL` count go on the kernels line);
 3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
    tight_cull on and off, on an empty scene, and with hybrid packets (rows
    2-8 on the bf16 grid, mean2d and invz exact);
 4. K2' (sorted forward blend, `blend_fwd`) against its plain twin on that
-   scene, with track_contrib on and off and at 200x120 (not a multiple of
-   16): atol 2e-5 on rgb, invdepth and final_T, n_contrib exact;
+   scene, with track_contrib on and off, at 200x120 (not a multiple of
+   16), with NaN conic/opacity entries and on `edge_table` (opacities a
+   hair above 1/255, means and box and ellipse edges on warp rectangle
+   borders; no kept pair outside the warp cull): max abs err 0 and
+   n_contrib exact;
 5. K3' (blend backward, `blend_bwd`) against its plain twin on hybrid
    packets of that scene at 640x480 and 200x120, with a seeded cotangent of
-   all five outputs and with NaN conic/opacity entries: per-row max relative
-   error below 1e-5;
+   all five outputs, with NaN conic/opacity entries and on `edge_table`:
+   per-row max relative error below 1e-5;
 6. K5' (OIT forward, `blend_oit_fwd`) against its plain twin at those
    sizes, float32 and hybrid packets, with and without NaN conic/opacity
    entries: N and D per pixel relative to max(1, |want|) below 2e-5, T
@@ -37,7 +43,10 @@ JSON line per phase:
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
    after; a per-stage breakdown; each kernel's time against its plain twin,
-   its bound and its error;
+   its bound and its error; K2' equal to its twin on the whole frame (max
+   abs err 0, n_contrib exact) and not under its bound; the warp cull's
+   check on the frame (`cull_stats_torch`: no kept pair outside its box or
+   in a skipped warp) and its share of skipped (warp, instance) pairs;
 9. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
 10. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
@@ -53,7 +62,10 @@ JSON line per phase:
    warm-up and 20 timed steps with the counts reset just before and read
    just after (K1', K2', K3' and K4' once per step), the loss falling, no
    NaN; a stage split, the busy share, peak memory; K3', K4' and the hybrid
-   pack against their twins at the train frame's shapes;
+   pack against their twins at the train frame's shapes; K2' equal to its
+   twin on the train frame and timed there, the cull's check on it, and
+   neither K2' nor K3' under its bound; then `warp_cull`: both frames'
+   cull checks and skipped shares;
 13. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
@@ -81,7 +93,9 @@ JSON line per phase:
    before and read just after: every probe kernel launched, no OIT kernel
    and no hybrid or bf16 pack;
 20. the kernels line: one JSON object with every kernel's launches on each
-   path, times, bound and error; K1' to K6' count on the render and train
+   path, times, bound and error (K2' and K3' also their walked and
+   evaluated pairs, culled share and build facts, K2' its train-frame
+   time); K1' to K6' count on the render and train
    paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
@@ -391,12 +405,77 @@ def nan_rows(inst_t):
     return t
 
 
+EDGE_GRID, EDGE_PER_TILE = (5, 4), 320
+
+
+def edge_table(device, seed=3):
+    """An instance table built to sit on the warp cull's edges, with its
+    tile ranges: per 16x16 tile of a 5x4 grid, 320 instances of every size
+    and orientation, half with opacity a hair above 1/255 (up to 1e-3
+    relative), the rest up to 1; a quarter each with the mean on a warp
+    rectangle's border, with the pixel box's edge on one, with the edge of
+    the ellipse where alpha = 1/255 on one, and anywhere in the tile (and
+    around it)."""
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+
+    rng = np.random.default_rng(seed)
+    gx, gy = EDGE_GRID
+    n = EDGE_PER_TILE
+    t_all = []
+    for tile in range(gx * gy):
+        tx0, ty0 = (tile % gx) * 16, (tile // gx) * 16
+        sx, sy = np.exp(rng.uniform(-1.0, 2.5, (2, n)))
+        ang = rng.uniform(0, np.pi, n)
+        c, s_ = np.cos(ang), np.sin(ang)
+        xx = c * c * sx * sx + s_ * s_ * sy * sy + 0.3
+        yy = s_ * s_ * sx * sx + c * c * sy * sy + 0.3
+        xy = c * s_ * (sx * sx - sy * sy)
+        det = xx * yy - xy * xy
+        op = np.where(rng.random(n) < 0.5, (1 / 255) * (1 + rng.uniform(0, 1e-3, n)),
+                      rng.uniform(1 / 255, 1.0, n))
+        t = np.zeros((16, n), np.float32)
+        t[2:6] = np.stack([-0.5 * yy / det, xy / det, -0.5 * xx / det, op])
+        t[6:10] = rng.uniform(0, 1, (4, n))
+        tab = torch.from_numpy(t)
+        tab[0:2] = 0.0
+        rad = rc.pixel_box_torch(tab)[[1, 3]].numpy()  # the box's half widths at a mean of 0
+        # the kept ellipse's half widths, sqrt(4c' tau / det') and sqrt(4a' tau / det')
+        tau = np.log(255 * op)
+        ell = np.sqrt(np.maximum(np.stack([2 * xx, 2 * yy]) * tau, 0.0))
+        # warp rectangle borders of the 8x4 blocks: columns 0, 7, 8, 15 and
+        # rows 0, 3, 4, ..., 15 of the tile
+        bx = tx0 + rng.choice([0, 7, 8, 15], n).astype(np.float32)
+        by = ty0 + rng.choice([0, 3, 4, 7, 8, 11, 12, 15], n).astype(np.float32)
+        side = rng.choice([-1.0, 1.0], (2, n)).astype(np.float32)
+        kind = rng.integers(0, 4, n)
+        mx = np.select([kind == 0, kind == 1, kind == 2],
+                       [bx, bx + side[0] * rad[0], bx + side[0] * ell[0]],
+                       tx0 + rng.uniform(-8, 24, n))
+        my = np.select([kind == 0, kind == 1, kind == 2],
+                       [by, by + side[1] * rad[1], by + side[1] * ell[1]],
+                       ty0 + rng.uniform(-8, 24, n))
+        tab[0], tab[1] = torch.from_numpy(mx.astype(np.float32)), torch.from_numpy(
+            my.astype(np.float32))
+        t_all.append(tab)
+    inst_t = torch.cat(t_all, dim=1).to(device)
+    bounds = torch.arange(0, gx * gy * n + 1, n, dtype=torch.int32, device=device)
+    return inst_t, bounds[:-1], bounds[1:], gx, gy
+
+
 def phase_blend(device):
-    """K2' vs blend_packed_torch: atol 2e-5, n_contrib exact."""
+    """K2' vs blend_packed_torch: max abs err 0 and n_contrib exact (on the
+    card `expf` and `torch.exp` round alike, and the warp cull changes no
+    bit), on the seeded scenes and on `edge_table`."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.synthetic import tiny_scene
+
+    def exact(label, args):
+        err, n_equal = blend_errors(rc.blend_fwd(*args), rc.blend_packed_torch(*args))
+        check(err == 0.0 and n_equal, f"blend {label}: max abs err {err}, n_contrib equal "
+              f"{n_equal}")
+        return err
 
     cases = []
     for w, h in ((SCENE["width"], SCENE["height"]), (200, 120)):
@@ -404,16 +483,19 @@ def phase_blend(device):
         screen, gx, gy = screen_of(scene, make_render_settings(sh_degree=3), device)
         pb = tb.pack_bins(screen, gx, gy)
         for track in (True, False):
-            args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy, track)
-            err, n_equal = blend_errors(rc.blend_fwd(*args), rc.blend_packed_torch(*args))
-            check(err <= ATOL, f"blend {w}x{h} track={track}: max abs err {err}")
-            check(n_equal, f"blend {w}x{h} track={track}: n_contrib differs")
+            err = exact(f"{w}x{h} track={track}", (pb.inst_t, pb.tile_start, pb.tile_end,
+                                                   gx, gy, track))
             cases.append({"size": f"{w}x{h}", "track_contrib": track, "max_abs_err": err})
         # the keep rule on non-finite inputs: a NaN conic or opacity drops the pair
-        args = (nan_rows(pb.inst_t), pb.tile_start, pb.tile_end, gx, gy, True)
-        err, n_equal = blend_errors(rc.blend_fwd(*args), rc.blend_packed_torch(*args))
-        check(err <= ATOL and n_equal, f"blend {w}x{h} NaN rows: max abs err {err}")
+        err = exact(f"{w}x{h} NaN rows", (nan_rows(pb.inst_t), pb.tile_start, pb.tile_end,
+                                          gx, gy, True))
         cases.append({"size": f"{w}x{h}", "nan_rows": True, "max_abs_err": err})
+    edge = edge_table(device)
+    stats = cull_summary(rc.cull_stats_torch(*edge), "edge table")
+    err = exact("edge table", (*edge, True))
+    cases.append({"case": "edge_table", "instances": edge[0].shape[1], "max_abs_err": err,
+                  "kept_pairs": stats["kept_pairs"],
+                  "culled_share": stats["culled_share"]["blocks_8x4"]})
     return cases
 
 
@@ -456,6 +538,19 @@ def phase_blend_bwd(device):
             cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
                           "max_rel_err": err,
                           "max_abs_err": float((got - want).abs().max())})
+    # the table on the warp cull's edges, with a seeded cotangent
+    edge = edge_table(device)
+    gx, gy = edge[3:]
+    gen = torch.Generator(device=device).manual_seed(9)
+    dout = torch.zeros((gx * gy, 256, 8), device=device)
+    dout[..., :5] = torch.randn((gx * gy, 256, 5), generator=gen, device=device)
+    fwd = rc.blend_fwd(*edge)
+    got, want = rc.blend_bwd(*edge, fwd, dout), rc.blend_bwd_packed_torch(*edge, fwd, dout)
+    check(bool(torch.isfinite(got).all()), "K3' edge table: non-finite rows")
+    err = per_row_rel_err(got, want)
+    check(err < ROW_REL, f"K3' edge table: per-row max rel err {err}")
+    cases.append({"case": "edge_table", "instances": edge[0].shape[1], "max_rel_err": err,
+                  "max_abs_err": float((got - want).abs().max())})
     return cases
 
 
@@ -645,6 +740,17 @@ def reduce_errors(dinst, gid, n):
     return err, rel, miss
 
 
+def cull_summary(stats, what):
+    """`cull_stats_torch` of a frame, checked: no kept pair outside its
+    box or at a pixel whose warp does not reach it; with each layout's
+    share of culled (warp, instance) pairs."""
+    check(stats["kept_outside_box"] == 0 and stats["kept_unreached"] == 0,
+          f"{what}: {stats['kept_outside_box']} kept pairs outside their pixel box, "
+          f"{stats['kept_unreached']} in warps the cull skips")
+    return {**stats, "culled_share": {name: n / max(stats["warp_instances"], 1)
+                                      for name, n in stats["culled_warp_instances"].items()}}
+
+
 def phase_main_path(device):
     """The full-width render through `render`, then per-kernel measurements."""
     from gsplat_tpu_torch.core.types import make_render_settings
@@ -717,20 +823,21 @@ def phase_main_path(device):
     k = tables[5]
     n = params.xyz.shape[0]
 
-    # --- K2' against its plain twin on 64 seeded tiles; the plain twin on the
-    # whole frame gives its time and the evaluated pair count
+    # --- K2' against its plain twin on the whole frame: max abs err 0 and
+    # n_contrib exact; the twin's one call gives its time and the pairs each
+    # pixel walks and the warp cull keeps (the kernel's evaluated pairs)
     starts, ends = bounds[:num_tiles], bounds[1:]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    plain_blend, pairs = rc.blend_packed_torch(inst_t, starts, ends, gx, gy, count_pairs=True)
+    plain_blend, walked, pairs = rc.blend_packed_torch(inst_t, starts, ends, gx, gy,
+                                                       count_pairs=True)
     torch.cuda.synchronize()
     blend_plain_ms = (time.perf_counter() - t) * 1e3
-    sel = torch.as_tensor(np.random.default_rng(0).choice(num_tiles, CHECK_TILES, replace=False),
-                          device=device)
-    blend_err, n_equal = blend_errors(blended[sel], plain_blend[sel])
-    check(blend_err <= ATOL and n_equal, f"K2' on 64 frame tiles: max abs err {blend_err}")
-    full_err, _ = blend_errors(blended, plain_blend)
-    blend_rel = blend_err / float(plain_blend[sel][..., :5].abs().max())
+    blend_err, n_equal = blend_errors(blended, plain_blend)
+    check(blend_err == 0.0 and n_equal, f"K2' on the flagship frame: max abs err {blend_err}, "
+          f"n_contrib equal {n_equal}")
+    blend_rel = blend_err / float(plain_blend[..., :5].abs().max())
+    cull = cull_summary(rc.cull_stats_torch(inst_t, starts, ends, gx, gy), "render frame")
 
     # --- K1' against its plain twins at the frame's shapes
     exp_args = (*tables[:5], screen.depth, k, gx, True)
@@ -766,23 +873,26 @@ def phase_main_path(device):
     pack_bound = pack_bound_of(k, live, num_tiles)
     # blend: 10 table rows per instance + 2 ranges per tile in; (T, 256, 8) out
     blend_bound = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 32, pairs * BLEND_OPS_PER_PAIR)
+    check(blend_ms >= blend_bound[0], f"K2' ran in {blend_ms} ms, under its bound {blend_bound[0]}")
 
     rows = {
         # K1' is checked bit for bit (its errors are 0, so relative ones too)
         "expand_instances": measured(exp_ms, exp_plain_ms, exp_bound, exp_err, exp_err),
         "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err),
-        "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel),
+        "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel,
+                              walked_pairs=walked, evaluated_pairs=pairs,
+                              culled_share=cull["culled_share"]["blocks_8x4"]),
     }
     summary = {
         "gaussians": n, "size": f"{FULL['width']}x{FULL['height']}", "instances": k,
         "live_gaussians": live, "trimmed_live_gaussians": trimmed_live,
         "trimmed_rows_with_run": run_rows,
-        "evaluated_pairs": pairs, "setup_s": setup_s,
+        "walked_pairs": walked, "evaluated_pairs": pairs, "warp_cull": cull, "setup_s": setup_s,
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "device_profile": profile,
         "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
         "sort_ms": sort_ms, "launches": launches,
-        "blend_check_tiles": CHECK_TILES, "blend_full_frame_max_abs_err": full_err,
+        "blend_full_frame_max_abs_err": blend_err,
         "peak_mem_gib": peak_gib,
     }
     return summary, rows
@@ -1155,17 +1265,31 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
     got = rc.blend_bwd(*k3_args)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    want, evaluated, blended = rc.blend_bwd_packed_torch(*k3_args, count_pairs=True)
+    want, walked, blended = rc.blend_bwd_packed_torch(*k3_args, count_pairs=True)
     torch.cuda.synchronize()
     k3_plain_ms = (time.perf_counter() - t) * 1e3
     k3_rel = per_row_rel_err(got, want)
     check(k3_rel < ROW_REL, f"K3' on the train frame: per-row max rel err {k3_rel}")
     k3_ms = cuda_time(lambda: rc.blend_bwd(*k3_args), 20)
+
+    # K2' on the train frame: bit for bit its twin, its time; the twin
+    # counts the pairs the warp cull lets K2' and K3' evaluate
+    fargs = k3_args[:5]
+    k2_got = rc.blend_fwd(*fargs)
+    k2_want, k2_walked, evaluated = rc.blend_packed_torch(*fargs, count_pairs=True)
+    k2_err, k2_n_equal = blend_errors(k2_got, k2_want)
+    check(k2_err == 0.0 and k2_n_equal and k2_walked == walked,
+          f"K2' on the train frame: max abs err {k2_err}, n_contrib equal {k2_n_equal}, "
+          f"walked {k2_walked} vs K3' twin {walked}")
+    k2_train_ms = cuda_time(lambda: rc.blend_fwd(*fargs), 20)
+    cull = cull_summary(rc.cull_stats_torch(*fargs), "train frame")
+
     # K3': 10 table rows per instance + 2 ranges per tile + the forward
     # output and its cotangent (T, 256, 8) each in; 10 rows per instance out.
     # Operations: the forward's 11 per evaluated pair + 45 per blended pair
     k3_bound = bound(k * 40 + num_tiles * 8 + 2 * num_tiles * 256 * 32 + k * 40,
                      evaluated * BLEND_OPS_PER_PAIR + blended * BWD_OPS_PER_BLENDED)
+    check(k3_ms >= k3_bound[0], f"K3' ran in {k3_ms} ms, under its bound {k3_bound[0]}")
 
     # K4' (hybrid: pack_bf16) against index_add_, off and on
     dinst, gid, n, pack = k4_args
@@ -1197,7 +1321,13 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
                                           pack_err, pack_err),
         # K3': the largest per-row relative error (the check's measure)
         "blend_bwd": measured(k3_ms, k3_plain_ms, k3_bound, float((got - want).abs().max()),
-                              k3_rel, evaluated_pairs=evaluated, blended_pairs=blended),
+                              k3_rel, walked_pairs=walked, evaluated_pairs=evaluated,
+                              blended_pairs=blended,
+                              culled_share=cull["culled_share"]["blocks_8x4"]),
+        # K2' on the train frame (its row is the render frame's)
+        "blend_fwd_train_frame": {"ms": k2_train_ms, "max_abs_err": k2_err,
+                                  "walked_pairs": k2_walked, "evaluated_pairs": evaluated,
+                                  "warp_cull": cull},
         "reduce_by_gid": measured(k4_ms, k4_plain_ms, k4_bound, k4_err, k4_rel,
                                   library_ms=lib_ms, unrounded_rel_miss=k4_miss),
     }
@@ -1364,11 +1494,56 @@ SASS_PROBES = {
 }
 
 
+def res_usage(source):
+    """{kernel function: {REG, STACK, SHARED, LOCAL}} of a built library,
+    from `cuobjdump -res-usage`."""
+    from gsplat_tpu_torch import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-res-usage", str(_kernels.library_path(source))],
+                         capture_output=True, text=True, timeout=120, check=True)
+    return {m.group(1): {k: int(m.group(i + 2)) for i, k in enumerate(("REG", "STACK", "SHARED",
+                                                                       "LOCAL"))}
+            for m in re.finditer(r"Function\s+(\S+?):\s+REG:(\d+)\s+STACK:(\d+)\s+"
+                                 r"SHARED:(\d+)\s+LOCAL:(\d+)", res.stdout)}
+
+
+# K3''s reduce-scatter: 31 shuffles per group of 3 instances (a five-level
+# butterfly per row would issue 50 per instance)
+K3_SHFL, K3_GROUP = 31, 3
+
+
+def sass_blend():
+    """K2' and K3' as built: registers, stack, shared and local memory
+    (`cuobjdump -res-usage`) and their SASS; neither touches local memory
+    (no spills at 256 threads a block); K2' issues no shuffle, and K3''s
+    only shuffles are one reduce-scatter of 31 per 3 instances."""
+    out = {}
+    for name, source, part in (("blend_fwd", "rasterize_fwd", "blend_fwd_kernel"),
+                               ("blend_bwd", "rasterize_bwd", "blend_bwd_kernel")):
+        ops = [v for f, v in sass_counts(source).items() if part in f]
+        use = [v for f, v in res_usage(source).items() if part in f]
+        check(len(ops) == 1 and len(use) == 1, f"{name}: {len(ops)} SASS / {len(use)} "
+              f"resource entries for {part}")
+        ops, use = ops[0], use[0]
+        check(not ops.get("LDL") and not ops.get("STL") and use["LOCAL"] == 0,
+              f"{name}: local memory ({use}, LDL {ops.get('LDL', 0)}, STL {ops.get('STL', 0)})")
+        shfl = ops.get("SHFL", 0)
+        if name == "blend_fwd":
+            check(shfl == 0, f"K2' issues {shfl} shuffles")
+        else:
+            check(0 < shfl <= K3_SHFL, f"K3' holds {shfl} SHFL, want at most {K3_SHFL}")
+        out[name] = {**use, "SHFL": shfl, "shfl_per_instance": shfl / K3_GROUP if shfl else 0.0,
+                     "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:20])}
+    return out
+
+
 def phase_sass():
     """Instruction counts of the probe kernels: the skeletons keep their ten
     staging stores (volatile, so nothing may drop them) and their barriers;
     no P3'/P4' kernel spills, and each holds at least one unrolled
-    iteration's float instructions."""
+    iteration's float instructions. Then the blend kernels' build facts
+    (`sass_blend`)."""
     libs = {src: sass_counts(src) for src in ("probe_skeleton", "probe_ops")}
 
     def find(src, part):
@@ -1389,6 +1564,7 @@ def phase_sass():
         check(not ops.get("LDL") and not ops.get("STL"), f"{name}: spills to local memory")
         out[name] = {"float": fp, "least": body,
                      "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
+    out.update(sass_blend())
     return out
 
 
@@ -1588,7 +1764,8 @@ def main() -> int:
     _kernels.build_all()
     emit(phase="build", seconds=time.perf_counter() - t,
          libraries=[_kernels.library_path(s).name for s in _kernels.SOURCES])
-    emit(phase="sass", kernels=phase_sass())
+    sass = phase_sass()
+    emit(phase="sass", kernels=sass)
 
     with torch.inference_mode():
         t = time.perf_counter()
@@ -1619,6 +1796,14 @@ def main() -> int:
     train_summary, state, train_measures, k3_args = phase_train(device)
     emit(phase="train_path", **train_summary, seconds=time.perf_counter() - t)
     measures.update(train_measures)
+    # the warp cull of K2' and K3' on the flagship frames, and the blend
+    # kernels' build facts, beside their rows
+    k2_train = measures.pop("blend_fwd_train_frame")
+    emit(phase="warp_cull", render_frame=render_summary["warp_cull"],
+         train_frame=k2_train["warp_cull"])
+    measures["blend_fwd"].update(train_frame={k: v for k, v in k2_train.items()
+                                              if k != "warp_cull"}, sass=sass["blend_fwd"])
+    measures["blend_bwd"]["sass"] = sass["blend_bwd"]
     k4 = measures["reduce_by_gid"]
     emit(phase="k4_vs_plain", pack_bf16=[False, True], max_abs_err=k4["max_abs_err"],
          max_rel_err=k4["max_rel_err"], unrounded_rel_miss=k4["unrounded_rel_miss"],

@@ -28,13 +28,22 @@ its sorted custom VJP `_make_blend_vjp`, :1193-1246, and its OIT custom VJP
   (`blend_tiles_cuda`), so autograd differentiates it, as
   `rasterize_pallas.py:1306-1324` does.
 
+- The warp cull of K2' and K3' (`csrc/common.cuh`): a warp owns an 8x4
+  block of its tile's pixels and skips an instance that cannot be kept at
+  any of them. `pixel_box_torch` and `warp_reaches_torch` are the twins of
+  its two tests; `cull_stats_torch` checks on a frame that no kept pair
+  lies outside its box or in a skipped warp, and counts what the cull
+  skips. Tests and `chip_smoke.py` use them; the twins' outputs do not
+  depend on them.
+
 On CUDA tensors the kernels run; on CPU tensors the twins, which compute
 the kernels' arithmetic in the kernels' order. The forward twins walk every
 tile's range one instance at a time, batched over tiles and pixels: they
-agree with the kernels to the rounding of `exp` and `log1p`. The sorted
-backward's twin sums each row over the tile's pixels in another order than
-K3''s shuffles; the OIT backward's twin walks the 256 pixels in K6''s order,
-batched over instances.
+agree with the kernels to the rounding of `exp` and `log1p` (the cull
+changes no output bit). The sorted backward's twin sums each row over the
+tile's pixels in another order than K3''s reduce-scatter; the OIT
+backward's twin walks the 256 pixels in K6''s order, batched over
+instances.
 """
 
 from __future__ import annotations
@@ -53,6 +62,150 @@ from gsplat_tpu_torch.ops.rasterize_torch import (
 )
 
 PPT = 256  # pixels per 16x16 tile
+WARPS = PPT // 32
+# the pixels a warp of K2'/K3' owns: WARP_W x WARP_H blocks of the tile
+# (`gs::WARP_W`, `gs::WARP_H`); the other layout is measured against it
+WARP_W, WARP_H = 8, 4
+WARP_LAYOUTS = {"blocks_8x4": (8, 4), "strips_16x2": (16, 2)}
+DEGENERATE = 1e-3  # `gs::DEGENERATE`
+EDGE_PAD = 0.0625  # `gs::EDGE_PAD`
+
+
+def pair_keep_torch(mx, my, ca, cb, cc, op, px, py):
+    """Twin of `gs::pair_power` and `gs::pair_alpha` on broadcastable
+    tensors: (dx, dy, power, g, alpha, keep), keep = power <= 0 and alpha
+    >= 1/255 (false for NaN)."""
+    dx = mx - px
+    dy = my - py
+    power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    g = torch.exp(power)
+    alpha = torch.clamp(op * g, max=ALPHA_MAX)
+    return dx, dy, power, g, alpha, (power <= 0.0) & (alpha >= ALPHA_MIN)
+
+
+def _box_and_tau(inst_t):
+    """`gs::pixel_box`: the (4, K) box and the margin-padded tau_m (K,)."""
+    mx, my, ca, cb, cc, op = inst_t[:6]
+    finite = torch.isfinite(inst_t[:6]).all(dim=0)
+    ln = torch.log(255.0 * op)
+    tau = (ln + 0.03125) + 0.0078125 * torch.abs(ln)
+    a, b, c = -ca, -cb, -cc
+    four_ac = 4.0 * a * c
+    det = four_ac - b * b
+    pd = (a > 0.0) & (c > 0.0) & (det > DEGENERATE * four_ac)
+    rx2 = 4.0 * c * tau / det
+    ry2 = 4.0 * a * tau / det
+    rx = 1.0 + torch.sqrt((rx2 + 4.0) + 0.0625 * torch.abs(rx2))
+    ry = 1.0 + torch.sqrt((ry2 + 4.0) + 0.0625 * torch.abs(ry2))
+    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry])
+    inf = float("inf")
+    whole = torch.tensor([-inf, inf, -inf, inf], device=inst_t.device)[:, None]
+    empty = finite & (~(op > 0.0) | (tau < 0.0))
+    box = torch.where(empty, -whole, box)
+    return torch.where(~finite | (~empty & ~pd), whole, box), tau
+
+
+def pixel_box_torch(inst_t: torch.Tensor) -> torch.Tensor:
+    """Plain twin of `gs::pixel_box` (csrc/common.cuh): (4, K) float32
+    [x0, x1, y0, y1] from rows 0-5 [mx, my, ca, cb, cc, op] of the instance
+    table, the same arithmetic in the same order.
+
+    Every pixel (px, py) at which the keep test can keep the instance has
+    x0 <= px <= x1 and y0 <= py <= y1. The whole plane (+-inf) for a
+    non-finite row, and for a conic that is not positive definite or whose
+    4a'c' - b'^2 is at most DEGENERATE * 4a'c'; empty (x0 = +inf, x1 = -inf)
+    for op <= 0 or ln(255 op) with its margin below 0.
+    """
+    return _box_and_tau(inst_t)[0]
+
+
+def _edge_min(u, v0, v1, p, q, r):
+    """`gs::edge_min`: min over v in [v0, v1] of p u^2 + q u v + r v^2."""
+    v = torch.minimum(torch.maximum(-(q * u) / (r + r), v0), v1)
+    return (p * u * u + r * v * v) + q * u * v
+
+
+def warp_reaches_torch(inst_t: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
+    """Plain twin of `gs::reaches`: (n, W) bool, whether the warps of
+    rectangles `rects` (n, W, 4) walk the instances `inst_t` (>= 6, n):
+    the pixel box meets the rectangle and, where the box is finite, the
+    conic's minimum over the rectangle widened by 1/16 px is at most tau_m.
+    Every pixel where the keep test keeps an instance lies in a warp that
+    reaches it (`cull_stats_torch` checks that on a frame)."""
+    box, tau = _box_and_tau(inst_t)
+    x0, x1, y0, y1 = (v[:, None] for v in box)
+    meets = ((x0 <= rects[..., 1]) & (x1 >= rects[..., 0])
+             & (y0 <= rects[..., 3]) & (y1 >= rects[..., 2]))
+    mx, my, ca, cb, cc = (v[:, None] for v in inst_t[:5])
+    u0, u1 = mx - (rects[..., 1] + EDGE_PAD), mx - (rects[..., 0] - EDGE_PAD)
+    v0, v1 = my - (rects[..., 3] + EDGE_PAD), my - (rects[..., 2] - EDGE_PAD)
+    inside = (u0 <= 0.0) & (u1 >= 0.0) & (v0 <= 0.0) & (v1 >= 0.0)
+    a, b, c = -ca, -cb, -cc
+    q = torch.minimum(torch.minimum(_edge_min(u0, v0, v1, a, b, c),
+                                    _edge_min(u1, v0, v1, a, b, c)),
+                      torch.minimum(_edge_min(v0, u0, u1, c, b, a),
+                                    _edge_min(v1, u0, u1, c, b, a)))
+    return meets & (torch.isinf(x0) | inside | (q <= tau[:, None]))
+
+
+def pixel_warps(layout=(WARP_W, WARP_H), device=None) -> torch.Tensor:
+    """(256,) the warp that owns each pixel of a tile (row-major index) in
+    a layout of (width, height) blocks (`gs::warp_pixel` inverted)."""
+    w, h = layout
+    p = torch.arange(PPT, device=device)
+    return torch.div(p // 16, h, rounding_mode="floor") * (16 // w) + (p % 16) // w
+
+
+def warp_rects_torch(tiles: torch.Tensor, grid_x: int, layout=(WARP_W, WARP_H)) -> torch.Tensor:
+    """(n, 8, 4) float32 [wx0, wx1, wy0, wy1] pixel rectangle (both ends
+    inclusive) of each warp of the tiles `tiles` (n,)."""
+    w, h = layout
+    warp = torch.arange(WARPS, device=tiles.device)
+    x0 = ((tiles % grid_x) * 16)[:, None] + (warp % (16 // w)) * w
+    y0 = (torch.div(tiles, grid_x, rounding_mode="floor") * 16)[:, None] + (warp // (16 // w)) * h
+    return torch.stack([x0, x0 + (w - 1), y0, y0 + (h - 1)], dim=-1).to(torch.float32)
+
+
+def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16):
+    """The warp cull checked and measured on a frame, in plain torch.
+
+    Over every instance slot of every tile's range and every pixel of its
+    tile: the pairs the keep test keeps (`kept_pairs`), those of them
+    outside the slot's `pixel_box_torch` box (`kept_outside_box`) and those
+    at a pixel whose warp does not reach the slot (`kept_unreached`): both
+    must be 0. Per layout of `WARP_LAYOUTS`, the (warp, instance) pairs the
+    cull skips (`culled_warp_instances`), of `warp_instances` = 8 per slot.
+    """
+    dev = inst_t.device
+    length = (tile_end - tile_start).long()
+    tile_of = torch.repeat_interleave(torch.arange(grid_x * grid_y, device=dev), length)
+    first = torch.cumsum(length, 0) - length
+    slot = tile_start.long()[tile_of] + (torch.arange(tile_of.shape[0], device=dev) - first[tile_of])
+    offs = tile_pixel_coords(1, 1, 16, dev)[0]  # (256, 2) pixel offsets in a tile
+    warp_of = pixel_warps(device=dev)
+    kept = outside = unreached = 0
+    culled = dict.fromkeys(WARP_LAYOUTS, 0)
+    for c0 in range(0, slot.shape[0], chunk):
+        tiles = tile_of[c0:c0 + chunk]
+        col = inst_t[:10, slot[c0:c0 + chunk]]
+        for name, layout in WARP_LAYOUTS.items():
+            reach = warp_reaches_torch(col, warp_rects_torch(tiles, grid_x, layout))
+            culled[name] += int((~reach).sum())
+            if layout == (WARP_W, WARP_H):
+                reach_pix = reach[:, warp_of]
+        box = pixel_box_torch(col)
+        px = ((tiles % grid_x) * 16).to(torch.float32)[:, None] + offs[:, 0]
+        py = (torch.div(tiles, grid_x, rounding_mode="floor") * 16).to(torch.float32)[:, None] \
+            + offs[:, 1]
+        keep = pair_keep_torch(*(v[:, None] for v in col[:6]), px, py)[-1]
+        inside = ((px >= box[0][:, None]) & (px <= box[1][:, None])
+                  & (py >= box[2][:, None]) & (py <= box[3][:, None]))
+        kept += int(keep.sum())
+        outside += int((keep & ~inside).sum())
+        unreached += int((keep & ~reach_pix).sum())
+    return {"instances": int(slot.shape[0]), "warp_instances": int(slot.shape[0]) * WARPS,
+            "culled_warp_instances": culled, "kept_pairs": kept, "kept_outside_box": outside,
+            "kept_unreached": unreached}
 
 
 def blend_packed_torch(
@@ -67,8 +220,9 @@ def blend_packed_torch(
     """Plain twin of K2': (T, 256, 8) float32 from the packed instances.
 
     With `count_pairs`, also returns the number of (pixel, instance) pairs
-    the kernel evaluates: each pixel walks its range until it stops, the
-    stopping instance included.
+    each pixel walks (its range until it stops, the stopping instance
+    included) and how many of them the kernel evaluates: those in a warp
+    the cull lets walk the instance (`warp_reaches_torch`).
     """
     dev = inst_t.device
     num_tiles = grid_x * grid_y
@@ -84,7 +238,11 @@ def blend_packed_torch(
     last = torch.zeros((num_tiles, PPT), dtype=torch.int32, device=dev)
     done = torch.zeros((num_tiles, PPT), dtype=torch.bool, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    reached = torch.zeros((), dtype=torch.int64, device=dev)
     k = inst_t.shape[1]
+    if count_pairs:
+        warp_of = pixel_warps(device=dev)
+        rects = warp_rects_torch(torch.arange(num_tiles, device=dev), grid_x)
 
     for j in range(max_len):
         if j % 64 == 0 and bool((done | (j >= length)[:, None]).all()):
@@ -92,11 +250,8 @@ def blend_packed_torch(
         walk = (j < length)[:, None] & ~done  # (T, 256)
         col = inst_t[:10, torch.clamp(start + j, max=max(k - 1, 0))]  # (10, T)
         mx, my, ca, cb, cc, op, r, g, b, iz = (v[:, None] for v in col)
-        dx = mx - px
-        dy = my - py
-        power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
-        keep = walk & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        alpha, kept = pair_keep_torch(mx, my, ca, cb, cc, op, px, py)[4:]
+        keep = walk & kept
         test_t = T * (1.0 - alpha)
         stop = keep & (test_t < T_EPS)
         blend = keep & ~stop
@@ -107,6 +262,8 @@ def blend_packed_torch(
         last = torch.where(blend, torch.full_like(last, j + 1), last)
         if count_pairs:
             pairs = pairs + walk.sum()
+            reach = warp_reaches_torch(col, rects)[:, warp_of]
+            reached = reached + (walk & reach).sum()
         done = done | stop
 
     out = torch.zeros((num_tiles, PPT, 8), dtype=torch.float32, device=dev)
@@ -116,7 +273,7 @@ def blend_packed_torch(
     if track_contrib:
         out[..., 5] = last.to(torch.float32)
     if count_pairs:
-        return out, int(pairs)
+        return out, int(pairs), int(reached)
     return out
 
 
@@ -204,12 +361,8 @@ def blend_bwd_packed_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, do
         walk = has[:, None] & ~done
         idx = torch.clamp(start + j, max=max(k - 1, 0))
         mx, my, ca, cb, cc, op, r, g_, b, iz = (v[:, None] for v in inst_t[:10, idx])
-        dx = mx - px
-        dy = my - py
-        power = (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        g = torch.exp(power)
-        alpha = torch.clamp(op * g, max=ALPHA_MAX)
-        keep = walk & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        dx, dy, _, g, alpha, kept = pair_keep_torch(mx, my, ca, cb, cc, op, px, py)
+        keep = walk & kept
         test_t = T * (1.0 - alpha)
         stop = keep & (test_t < T_EPS)
         blend = keep & ~stop

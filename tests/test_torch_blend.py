@@ -132,13 +132,15 @@ def test_nan_conic_or_opacity_drops_the_pair():
 
 def test_count_pairs_counts_the_walk():
     """Pairs walked per pixel = instances up to and including the stopping
-    one; a pixel that never saturates walks its whole range."""
+    one; a pixel that never saturates walks its whole range. The warp cull
+    evaluates some of them, never more."""
     ts, _, gx, gy = build()
     pb = tb.pack_bins(ts, gx, gy)
-    out, pairs = blend_packed_torch(pb.inst_t, pb.tile_start, pb.tile_end, gx, gy,
-                                    count_pairs=True)
+    out, pairs, reached = blend_packed_torch(pb.inst_t, pb.tile_start, pb.tile_end, gx, gy,
+                                             count_pairs=True)
     lengths = (pb.tile_end - pb.tile_start).numpy()
     assert 0 < pairs <= int(lengths.sum()) * 256
+    assert 0 < reached <= pairs
     saturated = out[..., 4].numpy() < 1e-3
     if not saturated.any():
         assert pairs == int(lengths.sum()) * 256
