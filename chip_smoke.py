@@ -17,86 +17,105 @@ JSON line per phase:
    K2' and K3' touch no local memory (`cuobjdump -res-usage` and no
    LDL/STL), K2' issues no shuffle and K3' at most the 31 of its
    reduce-scatter (its registers and `SHFL` count go on the kernels line);
+   K1' and K4' touch no local memory, and K4' holds three global
+   reductions per instance in each instantiation, every one a vector form
+   (their whole mnemonics, `.FTZ` or not, go on the kernels line);
 3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
    tight_cull on and off, on an empty scene, and with hybrid packets (rows
    2-8 on the bf16 grid, mean2d and invz exact);
-4. K2' (sorted forward blend, `blend_fwd`) against its plain twin on that
+4. `k1_edges`: K1' bit for bit against its twins on adversarial emission
+   tables on a 1080p tile grid (one gaussian on all 8,160 tiles, runs
+   straddling the expand's 256-slot steps, whole blocks of dead rows, N =
+   256 m +- 1, trimmed gaussians with empty rows), expand keys, gids and
+   live packet rows, then the pack in all three packet modes;
+5. `subnormals`: what the scalar `atomicAdd`, the v4 and v2 `red` forms,
+   K4' and its twin do with a subnormal addend, a subnormal sum of normal
+   addends and a subnormal addend onto a subnormal sum (kept or flushed);
+6. K2' (sorted forward blend, `blend_fwd`) against its plain twin on that
    scene, with track_contrib on and off, at 200x120 (not a multiple of
    16), with NaN conic/opacity entries and on `edge_table` (opacities a
    hair above 1/255, means and box and ellipse edges on warp rectangle
    borders; no kept pair outside the warp cull): max abs err 0 and
    n_contrib exact;
-5. K3' (blend backward, `blend_bwd`) against its plain twin on hybrid
+7. K3' (blend backward, `blend_bwd`) against its plain twin on hybrid
    packets of that scene at 640x480 and 200x120, with a seeded cotangent of
    all five outputs, with NaN conic/opacity entries and on `edge_table`:
    per-row max relative error below 1e-5;
-6. K5' (OIT forward, `blend_oit_fwd`) against its plain twin at those
+8. K5' (OIT forward, `blend_oit_fwd`) against its plain twin at those
    sizes, float32 and hybrid packets, with and without NaN conic/opacity
    entries: N and D per pixel relative to max(1, |want|) below 2e-5, T
    within atol 2e-5 (`k5_vs_plain`);
-7. K6' (OIT backward, `blend_oit_bwd`) against its plain twin in the same
+9. K6' (OIT backward, `blend_oit_bwd`) against its plain twin in the same
    cases, with a seeded cotangent of all six raw outputs: per-row max
    relative error below 1e-5 (`k6_vs_plain`);
-8. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
+10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
    after; a per-stage breakdown; each kernel's time against its plain twin,
-   its bound and its error; K2' equal to its twin on the whole frame (max
-   abs err 0, n_contrib exact) and not under its bound; the warp cull's
+   its bound and its error (the packs also `gather_ref_ms`, the card's
+   time for `packets.index_select(0, gauss_id)` alone); K2' equal to its
+   twin on the whole frame (max abs err 0, n_contrib exact); K1' and K2'
+   not under their bounds; the warp cull's
    check on the frame (`cull_stats_torch`: no kept pair outside its box or
    in a skipped warp) and its share of skipped (warp, instance) pairs;
-9. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
-10. the OIT render path at full width (`oit_render_path`): the same scene
+11. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
+12. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
    the float32 pack once per frame, K5' once, K2' never), 10 sorted and 10
    OIT frames in turns, stage split, busy share, peak memory, K5' against
    its twin on 64 tiles and its row;
-11. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
+13. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
    at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
    packets (counts read around them) and the bf16 pack's row;
-12. the train path at full width: the same scene (noise on features_dc and
+14. the train path at full width: the same scene (noise on features_dc and
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
    just after (K1', K2', K3' and K4' once per step), the loss falling, no
-   NaN; a stage split, the busy share, peak memory; K3', K4' and the hybrid
-   pack against their twins at the train frame's shapes; K2' equal to its
+   NaN; a stage split, the busy share, peak memory; K3', K4', the expand
+   (2,097,152 rows, half dead) and the hybrid pack against their twins at
+   the train frame's shapes and timed there (K4' also at the live rows'
+   N, and the zeroing of its accumulator alone), none under its bound;
+   K2' equal to its
    twin on the train frame and timed there, the cull's check on it, and
    neither K2' nor K3' under its bound; then `warp_cull`: both frames'
    cull checks and skipped shares;
-13. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
+15. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
    rounded sum by more than that);
-14. the skeleton probes (`probe_skeleton`): P1' (`skel_fwd`) on the render
+16. the skeleton probes (`probe_skeleton`): P1' (`skel_fwd`) on the render
    path's K2' inputs (the flagship frame) and P2' (`skel_bwd`) on the train
    frame's K3' inputs, each bit for bit against its twin; K2', P1', K3' and
    P2' timed in turns on those inputs, and the skeleton share of each
    kernel's time;
-15. one densify step and one opacity reset on the trained state;
-16. the OIT train path (`oit_train_path`): as 12 with `blend_mode="oit"`
+17. one densify step and one opacity reset on the trained state;
+18. the OIT train path (`oit_train_path`): as 14 with `blend_mode="oit"`
    (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
    never), and K6' against its twin on the whole train frame;
-17. the train CLI (30 iterations, densification forced early) and the render
+19. the train CLI (30 iterations, densification forced early) and the render
    CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
    oit` (`train_cli_oit`);
-18. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
+20. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
    and P4' at float32 and bf16, (256, 128) and (512, 128) (2000
    iterations), each against its twin on the card (float32: within 1e-6 of
    max |want|; bf16: within 2 bf16 ulps per element), with its time per
    iteration, its per-SM bound, the per-op costs and the bf16 speedups;
-19. the probe path (`probe_path`): the entry points of the three probe
+21. the probe path (`probe_path`): the entry points of the three probe
    modules (`ablate.main`, `op_rate.main`, `bf16_rate.main`, as `python -m
    gsplat_tpu_torch.probes.<name>` runs them) with the counts reset just
    before and read just after: every probe kernel launched, no OIT kernel
    and no hybrid or bf16 pack;
-20. the kernels line: one JSON object with every kernel's launches on each
+22. the kernels line: one JSON object with every kernel's launches on each
    path, times, bound and error (K2' and K3' also their walked and
    evaluated pairs, culled share and build facts, K2' its train-frame
-   time); K1' to K6' count on the render and train
-   paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
+   time; K1' its train-frame expand and expand + pack per path; K4' its
+   build facts and the subnormal outcomes; every path kernel its device
+   time from its path's profile, `profiled_ms`, which no slow host
+   stretches, also not under its bound); K1' to K6' count on the render
+   and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
    P3' and P4'. The render and train paths launch no probe kernel.
@@ -198,6 +217,12 @@ def interval_union(spans):
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+# the port's kernel functions on the paths, as the profiler names them
+PATH_KERNEL_FUNCS = ("expand_instances_kernel", "pack_instances_kernel", "blend_fwd_kernel",
+                     "blend_bwd_kernel", "reduce_by_gid_kernel", "oit_fwd_kernel",
+                     "oit_bwd_kernel")
+
+
 def device_profile(frame, frames=3, top=10):
     """Device activity over `frames` profiled frames, from `torch.profiler`.
 
@@ -205,7 +230,9 @@ def device_profile(frame, frames=3, top=10):
     copy and set intervals over the trace's span of those frames (first host
     op to last event end), so it cannot exceed 1. The profiled frames run
     slower than unprofiled ones (`profiled_frame_ms`); the share is theirs.
-    Also the summed device time per kernel name, and the top kernels."""
+    Also the summed device time per kernel name, the top kernels, and the
+    device time per frame of each of the port's kernels the frame ran (no
+    host gap between launches counts there)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,6 +269,8 @@ def device_profile(frame, frames=3, top=10):
         "busy_share": busy / (t1 - t0),
         "top_kernels": [{"kernel": k[:120], "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:top]],
+        "port_kernels_ms_per_frame": {f: sum(ms for k, ms, _ in rows if f in k)
+                                      for f in PATH_KERNEL_FUNCS if any(f in k for k, _, _ in rows)},
     }
 
 
@@ -326,6 +355,32 @@ def pack_bound_of(k, live, num_tiles):
     return bound(k * 20 + live * 40 + k * (64 + 8) + (num_tiles + 1) * 4)
 
 
+def expand_bound_of(tables):
+    """The expand's bound and the counts it rests on. What this run's data
+    needs the kernel to read: every gaussian's tile count; the rest of the
+    rect, cum_excl, depth and the trimmed flag only for live rows (count >
+    0); cum_run (all 8 rows) only for trimmed live rows, and t_lo only for
+    their rows that hold a run. Out: key 8 + gid 4 per instance. The packet
+    rows are the design's cost, not the work's."""
+    rect, _, trimmed, _, cum_run, k = tables
+    live_rows = rect[:, 3] > 0
+    trim_rows = live_rows & trimmed.bool()
+    run_len = torch.diff(cum_run[trim_rows], dim=1, append=rect[trim_rows, 3:4])
+    live, trimmed_live, run_rows = (int(x) for x in (live_rows.sum(), trim_rows.sum(),
+                                                     (run_len > 0).sum()))
+    n = rect.shape[0]
+    bnd = bound(n * 4 + live * (12 + 8 + 4 + 1) + trimmed_live * 32 + run_rows * 4 + k * 12)
+    return bnd, live, trimmed_live, run_rows
+
+
+def gather_ref_ms(packets, keys_sorted, perm, gid):
+    """A yardstick beside the pack's row, not a library time: the card's
+    time for `packets.index_select(0, gauss_id)` alone, the gather of one
+    packet row per sorted instance that the pack also makes."""
+    gauss_id = gid[perm].long()
+    return cuda_time(lambda: packets.index_select(0, gauss_id), 20)
+
+
 def measured(ms, plain_ms, bnd, err, rel_err, library_ms=None, **extra):
     """A kernel's numbers: `rel_err` is max |kernel - plain| / max |plain|."""
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -343,6 +398,16 @@ def screen_of(scene, settings, device):
 
 def bitwise_equal(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def expand_errors(what, got, want, rect):
+    """K1''s expand against its twin: keys and gids equal, the packet rows
+    of live gaussians bit for bit (the kernel leaves dead rows unwritten).
+    Returns the largest abs difference (0)."""
+    live = rect[:, 3] > 0
+    check(bitwise_equal(got[2][live], want[2][live]), f"{what}: live packet rows not bitwise equal")
+    return max_abs_diff(what, ("keys", "gid", "packets"), (got[0], got[1], got[2][live]),
+                        (want[0], want[1], want[2][live]))
 
 
 def phase_binning(device):
@@ -377,6 +442,116 @@ def phase_binning(device):
             case["rows_rounded"] = int((vals != f32.inst_t[2:9]).sum())
         cases.append(case)
     return cases
+
+
+EDGE_TILES = (120, 68)  # the tile grid of a 1920 x 1080 frame
+EXPAND_BLOCK = 256  # gaussians per expand block = slots per step of its walk
+
+
+def emission_edges(rng, n, tight, big=False, full_at=(), dead=()):
+    """An adversarial emission table on EDGE_TILES and screen columns for
+    its packet rows: a third each of dead rows (count 0, half flagged
+    trimmed), rects (up to 12 x 8 tiles, or 40 x 20 with `big`) and trimmed
+    gaussians of up to 8 rows, a third of whose rows are empty (t_lo at
+    rmin_x, cum_run shared with the next row; without `tight` their whole
+    rect is emitted and the flag ignored). `full_at` rows cover all 8,160
+    tiles; `dead` rows are forced dead. Depths in (0.21, 100) with ties."""
+    from types import SimpleNamespace
+
+    gx, gy = EDGE_TILES
+    kind = rng.integers(0, 3, n)  # 0 dead, 1 rect, 2 trimmed
+    kind[list(dead)] = 0
+    rw = rng.integers(1, 41 if big else 13, n)
+    rh = rng.integers(1, 21 if big else 9, n)
+    rh = np.where(kind == 2, np.minimum(rh, 8), rh)
+    full = np.zeros(n, bool)
+    full[list(full_at)] = True
+    kind[full], rw[full], rh[full] = 1, gx, gy
+    x0 = (rng.random(n) * (gx - rw + 1)).astype(np.int64)
+    y0 = (rng.random(n) * (gy - rh + 1)).astype(np.int64)
+    ends = x0[:, None, None] + (rng.random((n, 2, 8)) * rw[:, None, None]).astype(np.int64)
+    a, b = ends.min(axis=1), ends.max(axis=1)
+    row_live = (np.arange(8)[None, :] < rh[:, None]) & (rng.random((n, 8)) >= 1 / 3)
+    run = np.where(row_live, b - a + 1, 0)
+    t_lo = np.where(row_live, a, x0[:, None])
+    cum_run = np.cumsum(run, axis=1) - run
+    trim = kind == 2
+    count = np.where(kind == 0, 0, np.where(trim & tight, run.sum(axis=1), rw * rh))
+    flag = trim | ((kind == 0) & (rng.random(n) < 0.5))
+    cum = np.cumsum(count)
+    rect = np.stack([x0, y0, rw, count], axis=1)
+    depth = rng.uniform(0.21, 100.0, n).astype(np.float32)
+    depth[rng.random(n) < 0.1] = 7.0
+    dev = lambda x, dt: torch.as_tensor(x, dtype=dt, device=DEVICE).contiguous()
+    f = lambda *shape: dev(rng.standard_normal((n,) + shape), torch.float32)
+    cols = SimpleNamespace(mean2d=f(2), conic=f(3), opacity=f(), rgb=f(3),
+                           depth=dev(depth, torch.float32))
+    tables = (dev(rect, torch.int32), dev(cum - count, torch.int64), dev(flag, torch.uint8),
+              dev(t_lo, torch.int32), dev(cum_run, torch.int32))
+    return tables, cols, int(cum[-1])
+
+
+def straddled_steps(cum_excl, count, gid):
+    """(steps, straddled): the 256-slot steps of every expand block's walk
+    that fall inside its slot range, and those a run crosses (the slots on
+    either side of the step belong to one gaussian)."""
+    lo = cum_excl[::EXPAND_BLOCK]
+    last = torch.clamp(torch.arange(EXPAND_BLOCK - 1, cum_excl.shape[0] + EXPAND_BLOCK - 1,
+                                    EXPAND_BLOCK, device=cum_excl.device), max=cum_excl.shape[0] - 1)
+    hi = cum_excl[last] + count[last]
+    per_block = torch.clamp((hi - lo - 1) // EXPAND_BLOCK, min=0)
+    step = torch.repeat_interleave(lo, per_block) + EXPAND_BLOCK * (
+        torch.arange(int(per_block.sum()), device=lo.device)
+        - torch.repeat_interleave(torch.cumsum(per_block, 0) - per_block, per_block) + 1)
+    return int(step.numel()), int((gid[step - 1] == gid[step]).sum())
+
+
+def phase_k1_edges(device):
+    """K1' on adversarial emission tables, bit for bit against its twins:
+    expand (keys, gids, live packet rows), then the pack in all three
+    packet modes, on a 1080p tile grid. Cases: one gaussian on all 8,160
+    tiles; runs that straddle the 256-slot steps of the expand's walk
+    (rects up to 40 x 20); whole blocks of dead rows and a last block of one
+    row; N = 256 m +- 1; trimmed gaussians with empty rows (tight_cull)."""
+    from gsplat_tpu_torch.ops import binning as tb
+
+    rng = np.random.default_rng(11)
+    cases = (("full_grid", 257, True, dict(full_at=(100,))),
+             ("full_grid_rect", 511, False, dict(full_at=(0, 510))),
+             ("straddle", 4095, True, dict(big=True)),
+             ("straddle_rect", 4097, False, dict(big=True, full_at=(2000,))),
+             ("dead_blocks", 4097, True, dict(dead=range(0, 1280))),
+             ("trimmed_empty_rows", 65_535, True, {}),
+             ("n_plus_1", 65_537, True, dict(dead=range(256, 768))))
+    out = []
+    num_tiles = EDGE_TILES[0] * EDGE_TILES[1]
+    for name, n, tight, kw in cases:
+        tables, cols, total = emission_edges(rng, n, tight, **kw)
+        args = (*tables, cols, total, EDGE_TILES[0], tight)
+        got = tb.expand_instances(*args)
+        want = tb._expand_instances_torch(*args)
+        expand_errors(f"k1_edges {name}", got, want, tables[0])
+        keys, gid, packets = got
+        keys_sorted, perm = torch.sort(keys, stable=True)
+        for packet_dtype in tb.PACKET_MODES:
+            pack_args = (keys_sorted, perm, gid, packets, num_tiles, packet_dtype)
+            kout = tb.pack_instances(*pack_args)
+            pout = tb._pack_instances_torch(*pack_args[:3], want[2], *pack_args[4:])
+            check(bitwise_equal(kout[0], pout[0]), f"k1_edges {name} {packet_dtype}: inst_t")
+            max_abs_diff(f"k1_edges {name} {packet_dtype}", ("inst_t", "gauss_id", "tile_id",
+                                                              "bounds"), kout, pout)
+        count = tables[0][:, 3].long()
+        steps, straddled = straddled_steps(tables[1], count, gid.long())
+        blocks_dead = int((count.reshape(-1)[: n // EXPAND_BLOCK * EXPAND_BLOCK]
+                           .reshape(-1, EXPAND_BLOCK).sum(1) == 0).sum())
+        out.append({"case": name, "gaussians": n, "tight_cull": tight, "instances": total,
+                    "live": int((count > 0).sum()), "max_count": int(count.max()),
+                    "trimmed_live": int(((count > 0) & tables[2].bool()).sum()) if tight else 0,
+                    "walk_steps": steps, "steps_straddled": straddled,
+                    "all_dead_blocks": blocks_dead})
+    check(any(c["max_count"] == num_tiles for c in out), "k1_edges: no gaussian on every tile")
+    check(sum(c["steps_straddled"] for c in out) > 0, "k1_edges: no run straddles a step")
+    return out
 
 
 def blend_errors(out, ref):
@@ -692,15 +867,17 @@ def phase_bf16(device):
     # the bf16 pack at the frame's shapes, against its twin bit for bit
     gx, gy = grid_dims(camera, 16)
     screen, _, _ = screen_of((params, alive, camera), settings, device)
-    tables = tb._emission_tables(screen.detach(), 16, True)
-    keys, gid = tb.expand_instances(*tables[:5], screen.depth, tables[5], gx, True)
+    screen = screen.detach()
+    tables = tb._emission_tables(screen, 16, True)
+    keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
     keys_sorted, perm = torch.sort(keys, stable=True)
-    pack_args = (keys_sorted, perm, gid, screen, gx * gy, "bfloat16")
+    pack_args = (keys_sorted, perm, gid, packets, gx * gy, "bfloat16")
     pack_err = max_abs_diff("pack_instances (bf16)", ("inst_t", "gauss_id", "tile_id", "bounds"),
                             tb.pack_instances(*pack_args), tb._pack_instances_torch(*pack_args))
     pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
     pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
     live = int((tables[0][:, 3] > 0).sum())
+    check(pack_ms >= pack_bound_of(tables[5], live, gx * gy)[0], "bf16 pack ran under its bound")
     summary = {
         "table_cases": cases, "gaussians": FULL["n"], "size": f"{FULL['width']}x{FULL['height']}",
         "instances": out["num_instances"], "frame_ms": frame_ms,
@@ -708,7 +885,7 @@ def phase_bf16(device):
         "vs_float32_frame": {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean())},
     }
     row = measured(pack_ms, pack_plain_ms, pack_bound_of(tables[5], live, gx * gy),
-                   pack_err, pack_err)
+                   pack_err, pack_err, gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm, gid))
     return summary, {"pack_instances_bf16": row}
 
 
@@ -738,6 +915,61 @@ def reduce_errors(dinst, gid, n):
     check(miss > ROW_REL, f"K4' without pack_bf16 meets the bf16-rounded sum ({miss}): "
           "the data cannot tell whether K4' rounds")
     return err, rel, miss
+
+
+# rows of addends, added in turn into one float4 that starts at +0: a
+# subnormal addend; normal addends whose sum is subnormal (exact: Sterbenz);
+# a subnormal addend onto a subnormal sum
+SUBNORMAL_CASES = {
+    "subnormal_addend": [[1e-40, -1e-40, 5e-39, 1.1e-38]],
+    "subnormal_sum": [[1.5e-38] * 4, [-1.4e-38] * 4],
+    "subnormal_onto_subnormal": [[1e-40] * 4, [2e-40] * 4],
+}
+RED_FORMS = {"scalar_atomicAdd": 0, "red_v4": 1, "red_v2": 2}
+
+
+def subnormal_outcome(got, want):
+    """'kept' when every component is the exact float32 sum, 'flushed' when
+    every one is zero (the exact sums are all subnormal); else it fails."""
+    kept = bitwise_equal(got, want)
+    flushed = not bool(got.any())
+    check(kept or flushed, f"subnormal sum {got.tolist()}: neither {want.tolist()} nor 0")
+    return "kept" if kept else "flushed"
+
+
+def phase_subnormals(device):
+    """What the card's float32 reductions do with subnormal addends and
+    sums: the scalar `atomicAdd` (K4''s earlier form), the two vector `red` forms
+    (`gs_red_forms`, a measurement aid outside every path), K4' itself and
+    its twin (`index_add_`), each on SUBNORMAL_CASES."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.ops import reduce as rd
+
+    lib = _kernels.load("reduce")
+    out = {}
+    for case, rows in SUBNORMAL_CASES.items():
+        addends = torch.tensor(rows, dtype=torch.float32)
+        want = torch.zeros(4, dtype=torch.float32)
+        for r in addends:
+            want = want + r  # sequential float32 sums on the host keep subnormals
+        check(bool((want != 0).all() & (want.abs() < 1.1754944e-38).all()),
+              f"{case}: the exact sums are not all subnormal")
+        res = {}
+        for form, code in RED_FORMS.items():
+            acc = torch.zeros(4, dtype=torch.float32, device=device)
+            a = addends.to(device).contiguous()
+            _kernels.check(lib.gs_red_forms(a.data_ptr(), a.shape[0], code, acc.data_ptr(),
+                                            _kernels.stream(device)), "red_forms")
+            res[form] = subnormal_outcome(acc.cpu(), want)
+        # K4' and its twin: each addend row as one instance's ten values
+        # (the four components repeated), all into gaussian 0
+        dinst = addends.repeat(1, 3)[:, :10].T.contiguous().to(device)
+        gid = torch.zeros(addends.shape[0], dtype=torch.int32, device=device)
+        want10 = want.repeat(3)[:10]
+        for name, fn in (("k4", rd.reduce_by_gid_cuda), ("twin_index_add", rd.reduce_by_gid_torch)):
+            res[name] = subnormal_outcome(fn(dinst, gid, 1)[:10, 0].cpu(), want10)
+        out[case] = res
+    return out
 
 
 def cull_summary(stats, what):
@@ -802,13 +1034,15 @@ def phase_main_path(device):
         ev[0].record()
         screen, _, _ = screen_of((params, alive, camera), settings, device)
         ev[1].record()
-        tables = tb._emission_tables(screen.detach(), 16, True)
+        screen = screen.detach()
+        tables = tb._emission_tables(screen, 16, True)
         ev[2].record()
-        keys, gid = tb.expand_instances(*tables[:5], screen.depth, tables[5], gx, True)
+        keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
         ev[3].record()
         keys_sorted, perm = torch.sort(keys, stable=True)
         ev[4].record()
-        inst_t, gauss_id, tile_id, bounds = tb.pack_instances(keys_sorted, perm, gid, screen, num_tiles)
+        inst_t, gauss_id, tile_id, bounds = tb.pack_instances(keys_sorted, perm, gid, packets,
+                                                              num_tiles)
         ev[5].record()
         blended = rc.blend_fwd(inst_t, bounds[:num_tiles], bounds[1:], gx, gy)
         ev[6].record()
@@ -840,10 +1074,10 @@ def phase_main_path(device):
     cull = cull_summary(rc.cull_stats_torch(inst_t, starts, ends, gx, gy), "render frame")
 
     # --- K1' against its plain twins at the frame's shapes
-    exp_args = (*tables[:5], screen.depth, k, gx, True)
-    exp_err = max_abs_diff("expand_instances", ("keys", "gid"), (keys, gid),
-                           tb._expand_instances_torch(*exp_args))
-    pack_args = (keys_sorted, perm, gid, screen, num_tiles)
+    exp_args = (*tables[:5], screen, k, gx, True)
+    exp_err = expand_errors("expand_instances", (keys, gid, packets),
+                            tb._expand_instances_torch(*exp_args), tables[0])
+    pack_args = (keys_sorted, perm, gid, packets, num_tiles)
     pack_err = max_abs_diff("pack_instances", ("inst_t", "gauss_id", "tile_id", "bounds"),
                             (inst_t, gauss_id, tile_id, bounds),
                             tb._pack_instances_torch(*pack_args))
@@ -857,20 +1091,10 @@ def phase_main_path(device):
     blend_ms = cuda_time(lambda: rc.blend_fwd(*blend_args), 20)
     sort_ms = cuda_time(lambda: torch.sort(keys, stable=True), 20)
 
-    # what this run's data needs the binning kernels to read: every gaussian's
-    # tile count; the rest of the rect, cum_excl, depth and the trimmed flag
-    # only for live rows (count > 0); cum_run (all 8 rows) only for trimmed
-    # live rows, and t_lo only for their rows that hold a run
-    rect, _, trimmed, _, cum_run = tables[:5]
-    live_rows = rect[:, 3] > 0
-    trim_rows = live_rows & trimmed.bool()
-    run_len = torch.diff(cum_run[trim_rows], dim=1, append=rect[trim_rows, 3:4])
-    live, trimmed_live, run_rows = (int(x) for x in (live_rows.sum(), trim_rows.sum(),
-                                                     (run_len > 0).sum()))
-    # expand: key 8 + gid 4 per instance out
-    exp_bound = bound(n * 4 + live * (12 + 8 + 4 + 1) + trimmed_live * 32 + run_rows * 4
-                      + k * 12)
+    exp_bound, live, trimmed_live, run_rows = expand_bound_of(tables)
     pack_bound = pack_bound_of(k, live, num_tiles)
+    check(exp_ms >= exp_bound[0] and pack_ms >= pack_bound[0],
+          f"K1' under its bound: expand {exp_ms} / {exp_bound[0]}, pack {pack_ms} / {pack_bound[0]}")
     # blend: 10 table rows per instance + 2 ranges per tile in; (T, 256, 8) out
     blend_bound = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 32, pairs * BLEND_OPS_PER_PAIR)
     check(blend_ms >= blend_bound[0], f"K2' ran in {blend_ms} ms, under its bound {blend_bound[0]}")
@@ -878,7 +1102,8 @@ def phase_main_path(device):
     rows = {
         # K1' is checked bit for bit (its errors are 0, so relative ones too)
         "expand_instances": measured(exp_ms, exp_plain_ms, exp_bound, exp_err, exp_err),
-        "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err),
+        "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
+                                   gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm, gid)),
         "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel,
                               walked_pairs=walked, evaluated_pairs=pairs,
                               culled_share=cull["culled_share"]["blocks_8x4"]),
@@ -1217,7 +1442,8 @@ def phase_train(device, blend_mode="sorted"):
     bwd_attr, bwd_stage = ("blend_oit_bwd", "K6_oit_bwd") if oit else ("blend_bwd", "K3_blend_bwd")
     marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
                         (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
-                        (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None)])
+                        (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
+                        (tb, "expand_instances", None, None)])
     spans = (("forward", "fwd0", "fwd1"), ("loss", "fwd1", "loss1"),
              ("loss_backward", "loss1", "k3_0"), (bwd_stage, "k3_0", "k3_1"),
              ("K4_reduce", "k3_1", "k4_1"),
@@ -1233,8 +1459,8 @@ def phase_train(device, blend_mode="sorted"):
             if i >= WARMUP:
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
-    k3_args, k4_args, pack_args = (marks.args[a] for a in (
-        bwd_attr, "reduce_by_gid_cuda", "pack_instances"))
+    k3_args, k4_args, pack_args, exp_args = (marks.args[a] for a in (
+        bwd_attr, "reduce_by_gid_cuda", "pack_instances", "expand_instances"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
@@ -1247,13 +1473,13 @@ def phase_train(device, blend_mode="sorted"):
     }
     with torch.no_grad():  # the saved forward output carries requires_grad
         rows = (kernel_rows_oit_train(k3_args) if oit
-                else kernel_rows_train(k3_args, k4_args, pack_args))
+                else kernel_rows_train(k3_args, k4_args, pack_args, exp_args))
     return summary, state, rows, k3_args
 
 
-def kernel_rows_train(k3_args, k4_args, pack_args):
-    """K3', K4' and the hybrid K1' pack on the inputs one train step gave
-    them: time, plain twin time, error and bound."""
+def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
+    """K3', K4' and the hybrid K1' pack and expand on the inputs one train
+    step gave them: time, plain twin time, error and bound."""
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
@@ -1297,6 +1523,12 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
     k4_err, k4_rel, k4_miss = reduce_errors(dinst, gid, n)
     k4_ms = cuda_time(lambda: rd.reduce_by_gid_cuda(dinst, gid, n, True), 20)
     k4_plain_ms = cuda_time(lambda: rd.reduce_by_gid_torch(dinst, gid, n, True), 20)
+    # the same rows at the live gaussians' N (the padding rows own no
+    # instance): the accumulator's working set without the dead rows
+    n_live = int(gid.max()) + 1
+    k4_live_n_ms = cuda_time(lambda: rd.reduce_by_gid_cuda(dinst, gid, n_live, True), 20)
+    # a yardstick inside K4''s time: zeroing its (N, 16) accumulator alone
+    zero_ref_ms = cuda_time(lambda: torch.zeros((n, rd.N_ROWS), device=dinst.device), 20)
     # library: one index_add_ of the same (already rounded) rows into a fresh
     # zeroed output, as K4' zeroes its own
     rows10, gid_l = tb.round_bf16(dinst[:10]), gid.long()
@@ -1304,9 +1536,16 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
         1, gid_l, rows10), 20)
     # K4': 10 rows + gid per instance in; 10 x N floats out; 10 adds per instance
     k4_bound = bound(k * (40 + 4) + n * 40, 10 * k)
+    check(k4_ms >= k4_bound[0], f"K4' ran in {k4_ms} ms, under its bound {k4_bound[0]}")
 
-    # the hybrid pack at the train frame against its twin, bit for bit
-    keys_sorted, perm, kgid, screen, pt = pack_args[:5]
+    # the expand at the train frame (2,097,152 rows, half of them dead)
+    # and the hybrid pack, each against its twin bit for bit
+    exp_err = expand_errors("expand_instances (train frame)", tb.expand_instances(*exp_args),
+                            tb._expand_instances_torch(*exp_args), exp_args[0])
+    exp_ms = cuda_time(lambda: tb.expand_instances(*exp_args), 20)
+    exp_plain_ms = cuda_time(lambda: tb._expand_instances_torch(*exp_args), 3)
+    exp_bound, _, _, _ = expand_bound_of((*exp_args[:5], exp_args[6]))
+    keys_sorted, perm, kgid, packets, pt = pack_args[:5]
     check(pack_args[5] == "hybrid", "the train step packs hybrid instances")
     outs = tb.pack_instances(*pack_args)
     pack_err = max_abs_diff("pack_instances (hybrid)", ("inst_t", "gauss_id", "tile_id", "bounds"),
@@ -1314,11 +1553,18 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
     pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
     pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
     live = int(torch.unique(kgid).numel())
+    pack_bound = pack_bound_of(keys_sorted.shape[0], live, pt)
+    check(exp_ms >= exp_bound[0] and pack_ms >= pack_bound[0],
+          f"K1' under its bound on the train frame: expand {exp_ms} / {exp_bound[0]}, "
+          f"pack {pack_ms} / {pack_bound[0]}")
 
     return {
-        "pack_instances_hybrid": measured(pack_ms, pack_plain_ms,
-                                          pack_bound_of(keys_sorted.shape[0], live, pt),
-                                          pack_err, pack_err),
+        "pack_instances_hybrid": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
+                                          gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm,
+                                                                      kgid)),
+        # the expand on the train frame (its row is the render frame's)
+        "expand_instances_train_frame": measured(exp_ms, exp_plain_ms, exp_bound, exp_err,
+                                                 exp_err, rows=int(exp_args[0].shape[0])),
         # K3': the largest per-row relative error (the check's measure)
         "blend_bwd": measured(k3_ms, k3_plain_ms, k3_bound, float((got - want).abs().max()),
                               k3_rel, walked_pairs=walked, evaluated_pairs=evaluated,
@@ -1329,7 +1575,9 @@ def kernel_rows_train(k3_args, k4_args, pack_args):
                                   "walked_pairs": k2_walked, "evaluated_pairs": evaluated,
                                   "warp_cull": cull},
         "reduce_by_gid": measured(k4_ms, k4_plain_ms, k4_bound, k4_err, k4_rel,
-                                  library_ms=lib_ms, unrounded_rel_miss=k4_miss),
+                                  library_ms=lib_ms, unrounded_rel_miss=k4_miss,
+                                  live_n=n_live, ms_at_live_n=k4_live_n_ms,
+                                  zero_ref_ms=zero_ref_ms),
     }
 
 
@@ -1452,9 +1700,10 @@ def phase_train_cli(blend_mode="sorted"):
             "render_launches": render_launches}
 
 
-def sass_counts(source):
+def sass_counts(source, full=False):
     """{kernel function: {opcode: count}} of a built library, from
-    `cuobjdump -sass`."""
+    `cuobjdump -sass`; with `full` the key is the whole mnemonic, its
+    modifiers included (`RED.E.ADD...`)."""
     from gsplat_tpu_torch import _kernels
 
     tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
@@ -1466,9 +1715,11 @@ def sass_counts(source):
         if head:
             cur = counts.setdefault(head.group(1), {})
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        ins = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
+                       r"((?:\.[A-Za-z0-9_]+)*)", line)
         if ins and cur is not None:
-            cur[ins.group(1)] = cur.get(ins.group(1), 0) + 1
+            op = ins.group(1) + (ins.group(2) if full else "")
+            cur[op] = cur.get(op, 0) + 1
     return counts
 
 
@@ -1538,6 +1789,54 @@ def sass_blend():
     return out
 
 
+# opcodes of reductions and atomics on global memory (ATOMS, REDUX: shared
+# memory and warp reductions, not counted)
+GLOBAL_REDUCTIONS = ("RED", "REDG", "ATOM", "ATOMG")
+
+
+def one_function(table, part, what):
+    hits = [v for f, v in table.items() if part in f]
+    check(len(hits) == 1, f"{what}: {len(hits)} functions match {part}")
+    return hits[0]
+
+
+def sass_k1_k4():
+    """K1' and K4' as built: registers and no local memory; K4''s global
+    reductions, with their whole mnemonics: three per instance (for ten
+    values) in each of its two instantiations (pack_bf16 off and on), each
+    a mnemonic of the vector probe kernels (v4, v2); the scalar probe's
+    mnemonic is recorded beside them."""
+    out = {}
+    for name, source, part in (("expand_instances", "binning", "expand_instances_kernel"),
+                               ("pack_instances", "binning", "pack_instances_kernel"),
+                               ("reduce_by_gid", "reduce", "reduce_by_gid_kernelILb0E"),
+                               ("reduce_by_gid_pack_bf16", "reduce", "reduce_by_gid_kernelILb1E")):
+        ops = one_function(sass_counts(source), part, name)
+        use = one_function(res_usage(source), part, name)
+        check(not ops.get("LDL") and not ops.get("STL") and use["LOCAL"] == 0,
+              f"{name}: local memory ({use}, LDL {ops.get('LDL', 0)}, STL {ops.get('STL', 0)})")
+        out[name] = {**use, "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
+    full = sass_counts("reduce", full=True)
+
+    def reductions(part):
+        ops = one_function(full, part, part)
+        return {m: c for m, c in ops.items() if m.split(".")[0] in GLOBAL_REDUCTIONS}
+
+    forms = {form: reductions(f"red_forms_kernelILi{code}E") for form, code in RED_FORMS.items()}
+    check(sum(forms["scalar_atomicAdd"].values()) == 4 and sum(forms["red_v4"].values()) == 1
+          and sum(forms["red_v2"].values()) == 2, f"probe kernels' reductions: {forms}")
+    vector = set(forms["red_v4"]) | set(forms["red_v2"])
+    for name in ("reduce_by_gid", "reduce_by_gid_pack_bf16"):
+        red = reductions("reduce_by_gid_kernelILb" + ("1E" if "bf16" in name else "0E"))
+        check(sum(red.values()) == 3 and set(red) <= vector,
+              f"{name}: global reductions {red}, want 3 of the vector forms {sorted(vector)}")
+        out[name].update(global_reductions=red, reductions_per_instance=sum(red.values()),
+                         scalar_form=sorted(forms["scalar_atomicAdd"]),
+                         ftz=any(".FTZ" in m for m in red))
+    out["red_forms"] = forms
+    return out
+
+
 def phase_sass():
     """Instruction counts of the probe kernels: the skeletons keep their ten
     staging stores (volatile, so nothing may drop them) and their barriers;
@@ -1565,6 +1864,7 @@ def phase_sass():
         out[name] = {"float": fp, "least": body,
                      "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
     out.update(sass_blend())
+    out.update(sass_k1_k4())
     return out
 
 
@@ -1735,6 +2035,35 @@ KERNEL_ROWS = (
 )
 
 
+# (row, path whose profile times it, kernel function): `profiled_ms`, the
+# kernel's device time per frame or step in that path's profiled run
+PROFILED_ROWS = (("expand_instances", "render", "expand_instances_kernel"),
+                 ("pack_instances", "render", "pack_instances_kernel"),
+                 ("blend_fwd", "render", "blend_fwd_kernel"),
+                 ("pack_instances_hybrid", "train", "pack_instances_kernel"),
+                 ("blend_bwd", "train", "blend_bwd_kernel"),
+                 ("reduce_by_gid", "train", "reduce_by_gid_kernel"),
+                 ("oit_fwd", "oit_render", "oit_fwd_kernel"),
+                 ("oit_bwd", "oit_train", "oit_bwd_kernel"))
+
+
+def attach_profiled(measures, profiles):
+    """Each path kernel's device time from its path's profile beside its
+    timed loop (`ms`, CUDA events around back-to-back wrapper calls, which
+    a slow host can stretch); neither may be under the bound. K1''s expand
+    also gets its train-frame time and expand + pack per path."""
+    for row, path, func in PROFILED_ROWS:
+        ms = profiles[path][func]
+        check(ms >= measures[row]["bound_ms"], f"{row}: {ms} ms in the {path} profile, under "
+              f"its bound {measures[row]['bound_ms']}")
+        measures[row]["profiled_ms"] = ms
+    exp = measures["expand_instances"]
+    exp["train_frame"]["profiled_ms"] = profiles["train"]["expand_instances_kernel"]
+    exp["k1_total_profiled_ms"] = {
+        "render": exp["profiled_ms"] + measures["pack_instances"]["profiled_ms"],
+        "train": exp["train_frame"]["profiled_ms"] + measures["pack_instances_hybrid"]["profiled_ms"]}
+
+
 def kernels_line(measures, launches_by_path):
     """One row per kernel: `launches` is the count `read_counts` took on
     the path named in KERNEL_ROWS (each slice's main path: the train path,
@@ -1771,6 +2100,11 @@ def main() -> int:
         t = time.perf_counter()
         emit(phase="k1_vs_plain", cases=phase_binning(device), seconds=time.perf_counter() - t)
         t = time.perf_counter()
+        emit(phase="k1_edges", cases=phase_k1_edges(device), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        subnormals = phase_subnormals(device)
+        emit(phase="subnormals", cases=subnormals, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
         emit(phase="k2_vs_plain", cases=phase_blend(device), seconds=time.perf_counter() - t)
         t = time.perf_counter()
         emit(phase="k3_vs_plain", cases=phase_blend_bwd(device), seconds=time.perf_counter() - t)
@@ -1804,6 +2138,17 @@ def main() -> int:
     measures["blend_fwd"].update(train_frame={k: v for k, v in k2_train.items()
                                               if k != "warp_cull"}, sass=sass["blend_fwd"])
     measures["blend_bwd"]["sass"] = sass["blend_bwd"]
+    # K1': the expand on the train frame too, and expand + pack per path;
+    # K4': its build facts and what its reductions do with subnormals
+    exp_train = measures.pop("expand_instances_train_frame")
+    measures["expand_instances"].update(
+        train_frame=exp_train, sass=sass["expand_instances"],
+        k1_total_ms={"render": measures["expand_instances"]["ms"]
+                     + measures["pack_instances"]["ms"],
+                     "train": exp_train["ms"] + measures["pack_instances_hybrid"]["ms"]})
+    measures["pack_instances"]["sass"] = sass["pack_instances"]
+    measures["reduce_by_gid"].update(sass={k: sass[k] for k in (
+        "reduce_by_gid", "reduce_by_gid_pack_bf16", "red_forms")}, subnormals=subnormals)
     k4 = measures["reduce_by_gid"]
     emit(phase="k4_vs_plain", pack_bf16=[False, True], max_abs_err=k4["max_abs_err"],
          max_rel_err=k4["max_rel_err"], unrounded_rel_miss=k4["unrounded_rel_miss"],
@@ -1837,6 +2182,11 @@ def main() -> int:
     emit(phase="probe_path", entry_points=probe_out, launches=probe_launches,
          seconds=time.perf_counter() - t)
 
+    attach_profiled(measures, {path: summary["device_profile"]["port_kernels_ms_per_frame"]
+                               for path, summary in (("render", render_summary),
+                                                     ("train", train_summary),
+                                                     ("oit_render", oit_render_summary),
+                                                     ("oit_train", oit_train_summary))})
     rows = kernels_line(measures, {"train": train_summary["launches"],
                                    "render": render_summary["launches"],
                                    "oit_train": oit_train_summary["launches"],

@@ -44,8 +44,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points; every pointer and the stream are void*
 _SIGNATURES = {
     "binning": {
-        "gs_expand_instances": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-        "gs_pack_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P),
+        "gs_expand_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _P, _P, _P, _P),
+        "gs_pack_instances": (_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P),
     },
     "rasterize_fwd": {
         "gs_blend_fwd": (_P, _LL, _P, _P, _I, _I, _I, _P, _P),
@@ -54,7 +55,8 @@ _SIGNATURES = {
         "gs_blend_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P),
     },
     "reduce": {
-        "gs_reduce_by_gid": (_P, _P, _LL, _LL, _I, _I, _P, _P),
+        "gs_reduce_by_gid": (_P, _P, _LL, _I, _P, _P),
+        "gs_red_forms": (_P, _LL, _I, _P, _P),
     },
     "rasterize_oit": {
         "gs_oit_fwd": (_P, _LL, _P, _P, _I, _I, _P, _P),

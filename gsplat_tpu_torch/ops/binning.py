@@ -8,15 +8,19 @@ ranges and the (16, K) float32 instance table.
 On a CUDA tensor it runs kernel K1' (`csrc/binning.cu`, replacing the Pallas
 `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`), in two launches:
 
-- `expand_instances`: each gaussian writes its `tiles_post` instance slots
-  at offset `cum_excl` (the reference's `duplicateWithKeys`), with the
+- `expand_instances`: each gaussian's `tiles_post` instance slots start at
+  offset `cum_excl` (the reference's `duplicateWithKeys`); a block of 256
+  gaussians emits its contiguous slot range 256 slots at a time, with the
   JAX package's rect decode or, under `tight_cull`, its run-trimmed decode
   (`RUN_HMAX` = 8). Each slot gets the int64 key `(tile << 32) | depth_bits`
   and its gaussian id. Slots go out in gid order, so a stable sort on the
-  key gives the JAX total order (tile, depth bits, gid).
-- `pack_instances`: after the sort, each sorted slot writes its column of
-  the instance table (conic pre-folded to [-a/2, -b, -c/2], invz =
-  1/max(depth, 0.2)) and the tile boundaries, which give `tile_start` and
+  key gives the JAX total order (tile, depth bits, gid). The same launch
+  writes one (12,) float32 packet row per live gaussian: the ten table
+  columns (conic pre-folded to [-a/2, -b, -c/2], invz = 1/max(depth, 0.2)),
+  unrounded, and two zeros; rows of dead gaussians are left unwritten.
+- `pack_instances`: after the sort, each sorted slot copies its gaussian's
+  packet row into its column of the instance table, rounded as the packet
+  mode says, and writes the tile boundaries, which give `tile_start` and
   `tile_end` without a searchsorted.
 
 Packet modes (`packet_dtype`): "float32" stores every row exactly;
@@ -60,6 +64,7 @@ _RUN_PAD_REL = 1.0 + 2.0**-12
 _RUN_PAD_ABS = 2.0**-8  # pixels
 
 N_ROWS = 16  # instance-table rows: mx, my, ca, cb, cc, op, r, g, b, invz, 6 x 0
+PACKET_COLS = 12  # packet row: the ten table columns and 2 x 0 (48 bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,10 +312,11 @@ def _depth_bits(depth):
     return depth.contiguous().view(torch.int32).to(torch.int64)
 
 
-def _expand_instances_torch(rect, cum_excl, trimmed, t_lo, cum_run, depth,
+def _expand_instances_torch(rect, cum_excl, trimmed, t_lo, cum_run, screen,
                             total, grid_x, tight_cull):
     """Plain twin of `expand_instances`: (keys (K,) int64, gid (K,) int32)
-    in slot order (gid-major)."""
+    in slot order (gid-major), and the (N, 12) float32 packet rows
+    (`gaussian_packets`; the kernel writes the live rows only)."""
     dev = rect.device
     counts = rect[:, 3].to(torch.int64)
     owner = torch.repeat_interleave(torch.arange(rect.shape[0], device=dev), counts)
@@ -328,13 +334,15 @@ def _expand_instances_torch(rect, cum_excl, trimmed, t_lo, cum_run, depth,
         tx = torch.where(trim_o, tlo_sel + (local - cum_sel), tx)
         ty = torch.where(trim_o, r[:, 1] + r_trim, ty)
     tile_id = ty * grid_x + tx
-    keys = (tile_id << 32) | _depth_bits(depth)[owner]
-    return keys, owner.to(torch.int32)
+    keys = (tile_id << 32) | _depth_bits(screen.depth)[owner]
+    return keys, owner.to(torch.int32), gaussian_packets(screen)
 
 
-def _gaussian_columns(screen: ScreenGaussians):
-    """(N, 10) float32 per-gaussian instance columns, in table-row order."""
+def gaussian_packets(screen: ScreenGaussians):
+    """(N, 12) float32 per-gaussian packet rows: the instance columns in
+    table-row order, unrounded, then two zeros."""
     invz = 1.0 / torch.clamp(screen.depth, min=0.2)
+    zero = torch.zeros_like(invz)
     return torch.stack(
         [
             screen.mean2d[:, 0], screen.mean2d[:, 1],
@@ -343,9 +351,9 @@ def _gaussian_columns(screen: ScreenGaussians):
             -0.5 * screen.conic[:, 0], -screen.conic[:, 1], -0.5 * screen.conic[:, 2],
             screen.opacity,
             screen.rgb[:, 0], screen.rgb[:, 1], screen.rgb[:, 2],
-            invz,
+            invz, zero, zero,
         ],
-        dim=0,
+        dim=1,
     )
 
 
@@ -365,16 +373,17 @@ def _check_packet_dtype(packet_dtype: str) -> None:
         raise ValueError(f"packet_dtype={packet_dtype!r}: expected one of {sorted(PACKET_MODES)}")
 
 
-def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="float32"):
+def _pack_instances_torch(keys_sorted, perm, gid, packets, num_tiles, packet_dtype="float32"):
     """Plain twin of `pack_instances`: (inst_t (16, K), gauss_id, tile_id,
-    bounds (T+1,)) from the sorted keys and the sort permutation."""
+    bounds (T+1,)) from the sorted keys, the sort permutation and the
+    packet rows."""
     _check_packet_dtype(packet_dtype)
     k = keys_sorted.shape[0]
     dev = keys_sorted.device
     gauss_id = gid[perm]
     tile_id = (keys_sorted >> 32).to(torch.int32)
     inst_t = torch.zeros((N_ROWS, k), dtype=torch.float32, device=dev)
-    inst_t[:10] = _gaussian_columns(screen)[:, gauss_id.long()]
+    inst_t[:10] = packets[gauss_id.long(), :10].T
     rows = _ROUNDED_ROWS[packet_dtype]
     inst_t[rows] = round_bf16(inst_t[rows])
     bounds = torch.searchsorted(
@@ -383,50 +392,69 @@ def _pack_instances_torch(keys_sorted, perm, gid, screen, num_tiles, packet_dtyp
     return inst_t, gauss_id, tile_id, bounds
 
 
-def _check_float32(*tensors):
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"expected float32, got {t.dtype}")
+def _check_inputs(what, device, *specs):
+    """Each (tensor, dtype, shape) on `device` with that dtype and shape."""
+    for t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"{what}: expected {dtype} {shape} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def expand_instances(rect, cum_excl, trimmed, t_lo, cum_run, depth, total,
+def _check_packets(packets, n):
+    """The kernels read and write a packet row as three float4: the buffer
+    must be (n, 12) float32, rows 12 floats apart, 16-byte aligned. A
+    sliced view is refused, never copied."""
+    if (packets.dtype != torch.float32 or tuple(packets.shape) != (n, PACKET_COLS)
+            or packets.stride() != (PACKET_COLS, 1) or packets.data_ptr() % 16):
+        raise ValueError(f"packets must be a 16-byte aligned contiguous ({n}, {PACKET_COLS}) "
+                         f"float32 buffer, got {packets.dtype} {tuple(packets.shape)} with "
+                         f"strides {packets.stride()} at {packets.data_ptr():#x}")
+
+
+def expand_instances(rect, cum_excl, trimmed, t_lo, cum_run, screen, total,
                      grid_x, tight_cull):
-    """Kernel K1', launch 1: per-gaussian instance emission on the card.
+    """Kernel K1', launch 1: load-balanced instance emission and the packet
+    rows of the live gaussians on the card.
 
-    Same contract as `_expand_instances_torch`. CUDA tensors only.
+    Same contract as `_expand_instances_torch`, on the live packet rows
+    (the dead rows of `packets` are left as `torch.empty` gave them). CUDA
+    tensors only.
     """
     from gsplat_tpu_torch import _kernels
 
     if not rect.is_cuda:
         raise ValueError("expand_instances launches a CUDA kernel: tensors must be on a CUDA device")
-    n = rect.shape[0]
-    for t, dtype, shape in ((rect, torch.int32, (n, 4)), (cum_excl, torch.int64, (n,)),
-                            (trimmed, torch.uint8, (n,)), (t_lo, torch.int32, (n, RUN_HMAX)),
-                            (cum_run, torch.int32, (n, RUN_HMAX)), (depth, torch.float32, (n,))):
-        if t.dtype != dtype or tuple(t.shape) != shape or t.device != rect.device:
-            raise ValueError(f"expand_instances: expected {dtype} {shape} on {rect.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    rect, cum_excl, trimmed, t_lo, cum_run, depth = (
-        t.contiguous() for t in (rect, cum_excl, trimmed, t_lo, cum_run, depth))
-    keys = torch.empty((total,), dtype=torch.int64, device=rect.device)
-    gids = torch.empty((total,), dtype=torch.int32, device=rect.device)
+    n, dev = rect.shape[0], rect.device
+    cols = (screen.mean2d, screen.conic, screen.opacity, screen.rgb, screen.depth)
+    _check_inputs("expand_instances", dev, (rect, torch.int32, (n, 4)),
+                  (cum_excl, torch.int64, (n,)), (trimmed, torch.uint8, (n,)),
+                  (t_lo, torch.int32, (n, RUN_HMAX)), (cum_run, torch.int32, (n, RUN_HMAX)),
+                  *((c, torch.float32, (n,) + w) for c, w in zip(cols, ((2,), (3,), (), (3,), ()))))
+    if total >= 2**31:  # the kernel's slot offsets inside a block are int32
+        raise ValueError(f"expand_instances: {total} instances, the kernel takes < 2^31")
+    args = [t.contiguous() for t in (rect, cum_excl, trimmed, t_lo, cum_run, *cols)]
+    if any(t.data_ptr() % 16 for t in (args[0], args[3], args[4])):  # int4 row loads
+        raise ValueError("expand_instances: rect, t_lo and cum_run must be 16-byte aligned")
+    keys = torch.empty((total,), dtype=torch.int64, device=dev)
+    gids = torch.empty((total,), dtype=torch.int32, device=dev)
+    packets = torch.empty((n, PACKET_COLS), dtype=torch.float32, device=dev)
+    _check_packets(packets, n)
     if n == 0 or total == 0:
-        return keys, gids
+        return keys, gids, packets
     lib = _kernels.load("binning")
     err = lib.gs_expand_instances(
-        rect.data_ptr(), cum_excl.data_ptr(), trimmed.data_ptr(), t_lo.data_ptr(),
-        cum_run.data_ptr(), depth.data_ptr(), n, grid_x, int(tight_cull),
-        keys.data_ptr(), gids.data_ptr(), _kernels.stream(rect.device),
+        *(t.data_ptr() for t in args), n, grid_x, int(tight_cull),
+        keys.data_ptr(), gids.data_ptr(), packets.data_ptr(), _kernels.stream(dev),
     )
     _kernels.check(err, "expand_instances")
     expand_instances.launches += 1
-    return keys, gids
+    return keys, gids, packets
 
 
 expand_instances.launches = 0
 
 
-def pack_instances(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="float32"):
+def pack_instances(keys_sorted, perm, gid, packets, num_tiles, packet_dtype="float32"):
     """Kernel K1', launch 2: instance table + tile boundaries on the card.
 
     Same contract as `_pack_instances_torch`, every packet mode included.
@@ -437,18 +465,13 @@ def pack_instances(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="floa
     if not keys_sorted.is_cuda:
         raise ValueError("pack_instances launches a CUDA kernel: tensors must be on a CUDA device")
     _check_packet_dtype(packet_dtype)
-    mean2d = screen.mean2d.contiguous()
-    conic = screen.conic.contiguous()
-    opacity = screen.opacity.contiguous()
-    rgb = screen.rgb.contiguous()
-    depth = screen.depth.contiguous()
-    _check_float32(mean2d, conic, opacity, rgb, depth)
     k = keys_sorted.shape[0]
     dev = keys_sorted.device
-    for t, dtype in ((keys_sorted, torch.int64), (perm, torch.int64), (gid, torch.int32)):
-        if t.dtype != dtype or tuple(t.shape) != (k,) or t.device != dev:
-            raise ValueError(f"pack_instances: expected {dtype} ({k},) on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_inputs("pack_instances", dev, (keys_sorted, torch.int64, (k,)),
+                  (perm, torch.int64, (k,)), (gid, torch.int32, (k,)))
+    _check_packets(packets, packets.shape[0])
+    if packets.device != dev:
+        raise ValueError(f"pack_instances: packets on {packets.device}, keys on {dev}")
     keys_sorted, perm, gid = keys_sorted.contiguous(), perm.contiguous(), gid.contiguous()
     inst_t = torch.empty((N_ROWS, k), dtype=torch.float32, device=dev)
     gauss_id = torch.empty((k,), dtype=torch.int32, device=dev)
@@ -456,9 +479,8 @@ def pack_instances(keys_sorted, perm, gid, screen, num_tiles, packet_dtype="floa
     bounds = torch.empty((num_tiles + 1,), dtype=torch.int32, device=dev)
     lib = _kernels.load("binning")
     err = lib.gs_pack_instances(
-        keys_sorted.data_ptr(), perm.data_ptr(), gid.data_ptr(),
-        mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), rgb.data_ptr(),
-        depth.data_ptr(), k, num_tiles, PACKET_MODES[packet_dtype],
+        keys_sorted.data_ptr(), perm.data_ptr(), gid.data_ptr(), packets.data_ptr(),
+        k, num_tiles, PACKET_MODES[packet_dtype],
         inst_t.data_ptr(), gauss_id.data_ptr(), tile_id.data_ptr(), bounds.data_ptr(),
         _kernels.stream(dev),
     )
@@ -481,10 +503,10 @@ def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, expand, pack) 
     rect, cum_excl, trimmed, t_lo, cum_run, total = _emission_tables(
         screen, tile, tight_cull
     )
-    keys, gid = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen.depth,
-                       total, grid_x, tight_cull)
+    keys, gid, packets = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen,
+                                total, grid_x, tight_cull)
     keys_sorted, perm = torch.sort(keys, stable=True)
-    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, screen, num_tiles,
+    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, packets, num_tiles,
                                              packet_dtype)
     return PackedBins(
         inst_t=inst_t,

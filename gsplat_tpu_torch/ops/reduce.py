@@ -7,11 +7,14 @@ gradient rows into per-gaussian columns, with the JAX package's contract
 summed: the port's per-frame instance buffer has no invalid slots.
 
 On a CUDA tensor it launches K4' (`csrc/reduce.cu`, replacing the Pallas
-`_reduce_kernel`, `gsplat_tpu/ops/reduce.py:50`): one atomic add per
-(row, instance) into the output. The TPU's gid sort-back and one-hot
+`_reduce_kernel`, `gsplat_tpu/ops/reduce.py:50`): one thread per instance
+adds its ten values into its gaussian's row of a gaussian-major (N, 16)
+accumulator with three vector atomics. The TPU's gid sort-back and one-hot
 window exist for the TPU's engines (`reduce.py:1-23`) and are not ported.
 On a CPU tensor it runs the plain twin `reduce_by_gid_torch`, `index_add_`
-over the gaussian ids.
+over the gaussian ids into the same (N, 16) layout. Both return the
+accumulator's (16, N) transposed view (strides (1, 16)), so a caller's
+row slices such as `out[0:2].T` are strided (N, k) views, not copies.
 
 `pack_bf16` rounds every per-instance value to bf16 (nearest even) before
 the float32 sum, as the hybrid packet mode's pair packing does
@@ -43,14 +46,15 @@ def _check_rows(dinst, gauss_id):
 
 
 def reduce_by_gid_torch(dinst, gauss_id, n_gauss: int, pack_bf16: bool = False):
-    """Plain twin of K4': `index_add_` of rows 0-9 over `gauss_id`."""
+    """Plain twin of K4': `index_add_` of rows 0-9 over `gauss_id` into an
+    (N, 16) accumulator; returns its (16, N) view."""
     _check_rows(dinst, gauss_id)
     rows = dinst[:N_GRAD]
     if pack_bf16:
         rows = round_bf16(rows)
-    out = torch.zeros((N_ROWS, n_gauss), dtype=torch.float32, device=dinst.device)
-    out[:N_GRAD].index_add_(1, gauss_id.long(), rows)
-    return out
+    acc = torch.zeros((n_gauss, N_ROWS), dtype=torch.float32, device=dinst.device)
+    acc[:, :N_GRAD].index_add_(0, gauss_id.long(), rows.T)
+    return acc.T
 
 
 def reduce_by_gid_cuda(dinst, gauss_id, n_gauss: int, pack_bf16: bool = False):
@@ -64,24 +68,29 @@ def reduce_by_gid_cuda(dinst, gauss_id, n_gauss: int, pack_bf16: bool = False):
     k = dinst.shape[1]
     dinst = dinst.contiguous()
     gauss_id = gauss_id.to(torch.int32).contiguous()
-    out = torch.zeros((N_ROWS, n_gauss), dtype=torch.float32, device=dinst.device)
+    acc = torch.zeros((n_gauss, N_ROWS), dtype=torch.float32, device=dinst.device)
+    # the vector atomics write 16-byte aligned float4/float2 of 16-float rows
+    if acc.stride() != (N_ROWS, 1) or acc.data_ptr() % 16:
+        raise ValueError(f"reduce_by_gid_cuda: accumulator strides {acc.stride()} at "
+                         f"{acc.data_ptr():#x}, want ({N_ROWS}, 1), 16-byte aligned")
     if k == 0:
-        return out
+        return acc.T
     lib = _kernels.load("reduce")
     err = lib.gs_reduce_by_gid(
-        dinst.data_ptr(), gauss_id.data_ptr(), k, n_gauss, N_GRAD, int(pack_bf16),
-        out.data_ptr(), _kernels.stream(dinst.device),
+        dinst.data_ptr(), gauss_id.data_ptr(), k, int(pack_bf16), acc.data_ptr(),
+        _kernels.stream(dinst.device),
     )
     _kernels.check(err, "reduce_by_gid")
     reduce_by_gid_cuda.launches += 1
-    return out
+    return acc.T
 
 
 reduce_by_gid_cuda.launches = 0
 
 
 def reduce_by_gid(dinst, gauss_id, n_gauss: int, pack_bf16: bool = False):
-    """Sum (>= 10, K) per-instance gradient rows into (16, n_gauss) columns.
+    """Sum (>= 10, K) per-instance gradient rows into (16, n_gauss) columns
+    (the transposed view of an (n_gauss, 16) buffer).
 
     On a CUDA tensor through kernel K4'; on a CPU tensor through
     `reduce_by_gid_torch`.
