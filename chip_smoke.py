@@ -91,13 +91,35 @@ JSON line per phase:
    frame's K3' inputs, each bit for bit against its twin; K2', P1', K3' and
    P2' timed in turns on those inputs, and the skeleton share of each
    kernel's time;
-17. one densify step and one opacity reset on the trained state;
+17. one densify step and one opacity reset on the trained state, then
+   `resize`: that state (2,097,152 rows, 1,048,576 alive) grown to
+   3,145,728 rows and shrunk to 1,310,720 by `resize_train_state`, the
+   alive rows' params, Adam moments, counts and stats bit for bit the
+   originals in alive order, dead rows sanitized, each resized state's
+   render within atol 1e-6 of the original's;
 18. the OIT train path (`oit_train_path`): as 14 with `blend_mode="oit"`
    (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
    never), and K6' against its twin on the whole train frame;
 19. the train CLI (30 iterations, densification forced early) and the render
    CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
    oit` (`train_cli_oit`);
+   then `colmap_train`: a COLMAP scene written by the port's
+   `colmap.write_model` (one PINHOLE camera at 1920x1080, 8 views on a
+   ring around the flagship cloud, rendered by K1' and K2' as ground truth;
+   262,144 SfM-like points), read back on the native path, trained 200
+   iterations through the port's loop with `capacity=0` and hybrid packets
+   (densify rounds at 40, 80 and 120) with the counts reset just before and
+   read just after (K1' expand and hybrid pack, K2', K3', K4' once per
+   iteration); the capacity grows past the init's 524,288 rows, the alive
+   count past 262,144, the loss falls; step ms before the first grow and
+   after the last, each resize's ms, the capacity and alive trajectory,
+   peak memory; then the render CLI on the saved model (8 views);
+   `bench`: `python -m gsplat_tpu_torch.bench`'s `main` (the top-level
+   `bench.py`'s four points: 1M gaussians hybrid and float32 and 262,144
+   hybrid, forward and backward, 1M forward alone), its JSON keys, finite
+   positive rates, device time per call at most the host's, the kernels
+   each point launches; `entry`: `gsplat_tpu_torch.entry.entry()` once
+   (K1' and K2' once each, a finite image);
 20. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
    and P4' at float32 and bf16, (256, 128) and (512, 128) (2000
    iterations), each against its twin on the card (float32: within 1e-6 of
@@ -118,7 +140,8 @@ JSON line per phase:
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
-   P3' and P4'. The render and train paths launch no probe kernel.
+   P3' and P4'; the COLMAP train path's, the bench's and the entry's counts
+   beside them. The render and train paths launch no probe kernel.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -183,38 +206,12 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
-
-
 def cuda_time(fn, reps):
     """Mean device ms of `fn()` over `reps` calls after one warm-up call
     (CUDA events around the calls)."""
     from gsplat_tpu_torch.probes import time_ms
 
     return time_ms(fn, reps, torch.device(DEVICE))
-
-
-# trace categories of the chrome trace that `torch.profiler` exports
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
-
-
-def interval_union(spans):
-    """Total length covered by the (start, end) spans."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 # the port's kernel functions on the paths, as the profiler names them
@@ -226,47 +223,30 @@ PATH_KERNEL_FUNCS = ("expand_instances_kernel", "pack_instances_kernel", "blend_
 def device_profile(frame, frames=3, top=10):
     """Device activity over `frames` profiled frames, from `torch.profiler`.
 
-    `busy_share` is read off the trace: the union of the device's kernel,
-    copy and set intervals over the trace's span of those frames (first host
-    op to last event end), so it cannot exceed 1. The profiled frames run
-    slower than unprofiled ones (`profiled_frame_ms`); the share is theirs.
-    Also the summed device time per kernel name, the top kernels, and the
-    device time per frame of each of the port's kernels the frame ran (no
-    host gap between launches counts there)."""
+    `busy_share` is read off the trace (`gsplat_tpu_torch.profiling`, which
+    the bench reports its device times with): the union of the device's
+    kernel, copy and set intervals over the trace's span of those frames
+    (first host op to last event end), so it cannot exceed 1. The profiled
+    frames run slower than unprofiled ones (`profiled_frame_ms`); the share
+    is theirs. Also the summed device time per kernel name, the top kernels,
+    and the device time per frame of each of the port's kernels the frame
+    ran (no host gap between launches counts there)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            frame()
-        torch.cuda.synchronize()
+    from gsplat_tpu_torch.profiling import busy_span_us, profile_calls
+
+    prof = profile_calls(frame, frames)
     # device-side events only: the CPU-side op rows repeat their kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3 / frames, e.count / frames)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
-              if e.get("ph") == "X" and "dur" in e]
-    def spans(cats):
-        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                for e in events if e.get("cat") in cats]
-
-    device, host = spans(DEVICE_CATS), spans(HOST_CATS)
-    check(device and host, "profiler trace holds no device or no host events")
-    t0 = min(s for s, _ in host)
-    t1 = max(e for _, e in device + host)
-    busy = interval_union([(max(s, t0), min(e, t1)) for s, e in device if min(e, t1) > max(s, t0)])
+    busy, span = busy_span_us(prof)
     return {
         "device_ms_per_frame": sum(r[1] for r in rows),
         "kernels_per_frame": sum(r[2] for r in rows),
-        "profiled_frame_ms": (t1 - t0) / 1e3 / frames,
+        "profiled_frame_ms": span / 1e3 / frames,
         "busy_ms_per_frame": busy / 1e3 / frames,
-        "busy_share": busy / (t1 - t0),
+        "busy_share": busy / span,
         "top_kernels": [{"kernel": k[:120], "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:top]],
         "port_kernels_ms_per_frame": {f: sum(ms for k, ms, _ in rows if f in k)
@@ -1700,6 +1680,354 @@ def phase_train_cli(blend_mode="sorted"):
             "render_launches": render_launches}
 
 
+# the COLMAP path: 8 views of the flagship cloud at 1920x1080 on a ring, and
+# 262,144 SfM-like points; densify rounds at iterations 40, 80 and 120 with
+# grad threshold 0, so every alive gaussian is cloned or split and each round
+# about doubles the count (at 1e-6 too few were hot on this scene for the
+# count to pass 75% of the init's rows, and the capacity never grew)
+COLMAP = dict(views=8, points=262_144, iterations=200, densify_from_iter=20,
+              densification_interval=40, densify_until_iter=121, grad_threshold=0.0)
+COLMAP_INIT_ROWS = 524_288  # `init_from_pcd`'s rows for 262,144 points
+RESIZE_TO = {"grow": 3_145_728, "shrink": 1_310_720}
+
+
+def ring_poses(n, radius=4.0, height=0.5):
+    """World-to-camera (R, t) of `n` views on a ring around the origin,
+    each looking at it (the pose construction of
+    `scripts/make_fixtures.py:make_colmap_gaussian_scene`)."""
+    poses = []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        p = np.array([radius * np.cos(ang), radius * np.sin(ang), height])
+        z = -p / np.linalg.norm(p)
+        x = np.cross([0.0, 0.0, 1.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        poses.append((R, -R @ p))
+    return poses
+
+
+class NativeCalls:
+    """Counts the calls of the port's native COLMAP readers that returned a
+    result, by swapping the module attributes while active."""
+
+    NAMES = ("colmap_cameras", "colmap_images", "colmap_points3d")
+
+    def __init__(self):
+        from gsplat_tpu_torch.data import native
+
+        self.native, self.calls, self._saved = native, {n: 0 for n in self.NAMES}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self._saved[name] = getattr(self.native, name)
+
+            def counted(path, _fn=fn, _name=name):
+                out = _fn(path)
+                self.calls[_name] += out is not None
+                return out
+
+            setattr(self.native, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.native, name, fn)
+
+
+def write_colmap_scene(root: Path, device):
+    """A COLMAP scene of the flagship cloud, written by the port's
+    `colmap.write_model`: one PINHOLE camera at 1920x1080 with the flagship
+    camera's horizontal field of view, `COLMAP["views"]` posed views, and
+    `points3D.bin` holding a noisy subset of the cloud's centres with their
+    DC colours (as `scripts/make_fixtures.py:145-272` builds its points).
+    The model is read back once through the port's reader, which must take
+    the native path; each view's image is then the float32 sorted render
+    (K1', K2') of the cloud from the camera the reader gave."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.core.sh import sh_to_rgb
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.data import colmap
+    from gsplat_tpu_torch.data.cameras import make_camera
+    from gsplat_tpu_torch.data.readers import read_scene_info
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    params, alive, _ = tiny_scene(**FULL, device=device)
+    w, h = FULL["width"], FULL["height"]
+    focal = w / (2.0 * np.tan(0.45))  # tiny_scene's fovx 0.9, square pixels
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", w, h, np.array([focal, focal, w / 2, h / 2]))}
+    images = {i + 1: colmap.ColmapImage(i + 1, colmap.rotmat2qvec(R), t, 1, f"v_{i:03d}.png",
+                                        np.zeros((0, 2)), np.zeros((0,), np.int64))
+              for i, (R, t) in enumerate(ring_poses(COLMAP["views"]))}
+    rng = np.random.default_rng(0)
+    sel = np.sort(rng.choice(FULL["n"], COLMAP["points"], replace=False))
+    xyz = params.xyz.detach().cpu().numpy()[sel].astype(np.float64)
+    xyz += rng.normal(0, 0.01, xyz.shape)
+    dc = params.features_dc.detach().cpu().numpy()[sel, 0]
+    rgb = (np.clip(sh_to_rgb(dc), 0.0, 1.0) * 255).astype(np.uint8)
+    src = root / "colmap_scene"
+    (src / "images").mkdir(parents=True)
+    t = time.perf_counter()
+    colmap.write_model(cams, images, (xyz, rgb, np.zeros(len(sel))), str(src / "sparse" / "0"))
+    write_s = time.perf_counter() - t
+
+    with NativeCalls() as nat:
+        info = read_scene_info(str(src))
+    check(all(n == 1 for n in nat.calls.values()),
+          f"the COLMAP reader did not take the native path: {nat.calls}")
+    check(len(info.train_cameras) == COLMAP["views"] and info.points.shape == (COLMAP["points"], 3),
+          f"read {len(info.train_cameras)} views and {info.points.shape[0]} points")
+
+    settings = make_render_settings(sh_degree=3, packet_dtype="float32")
+    reset_counts()
+    for ci in info.train_cameras:
+        cam = make_camera(ci.R, ci.T, ci.fovx, ci.fovy, ci.width, ci.height, device=device)
+        with torch.no_grad():
+            img = render(cam, params, alive, settings, [0.0, 0.0, 0.0], device=DEVICE)["render"]
+        check(float(img.std()) > 0.01, f"{ci.image_name}: the ground-truth view is flat")
+        Image.fromarray((img.cpu().numpy() * 255 + 0.5).astype(np.uint8)).save(
+            src / "images" / ci.image_name)
+    gt_launches = read_counts()
+    check_counts(gt_launches, RENDER_KERNELS, COLMAP["views"], "COLMAP ground-truth renders")
+    return src, {"native_calls": nat.calls, "write_model_s": write_s,
+                 "gt_launches": gt_launches}
+
+
+def phase_colmap_train(device):
+    """A COLMAP scene trains through the port's loop at 1080p while its
+    gaussian capacity grows (`capacity=0`, hybrid packets), then the render
+    CLI renders the saved model. Counts are reset just before the training
+    and read just after: K1''s expand and hybrid pack, K2', K3' and K4' once
+    per iteration, nothing else."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.cli import render as render_cli
+    from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                                         save_cfg_args)
+    from gsplat_tpu_torch.train import loop
+
+    iters = COLMAP["iterations"]
+    densify_its = {it for it in range(1, iters + 1)
+                   if COLMAP["densify_from_iter"] < it < COLMAP["densify_until_iter"]
+                   and it % COLMAP["densification_interval"] == 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t = time.perf_counter()
+        src, scene_facts = write_colmap_scene(Path(tmp), device)
+        setup_s = time.perf_counter() - t
+        model = Path(tmp) / "model"
+        cfg = ModelConfig(source_path=str(src), model_path=str(model), resolution=1,
+                          sh_degree=3)
+        save_cfg_args(str(model), cfg)
+        opt = OptimizationConfig(
+            iterations=iters, densify_from_iter=COLMAP["densify_from_iter"],
+            densification_interval=COLMAP["densification_interval"],
+            densify_until_iter=COLMAP["densify_until_iter"],
+            densify_grad_threshold=COLMAP["grad_threshold"])
+        pipe = PipelineConfig(capacity=0, packet_dtype="hybrid")
+
+        step_end, loss, trajectory, resizes = {}, [], [], []
+
+        def on_iteration(it, state, metrics):
+            torch.cuda.synchronize()
+            step_end[it] = time.perf_counter()
+            loss.append(float(metrics["loss"]))
+            if it in densify_its or it == iters:
+                trajectory.append({"iteration": it, "capacity": state.capacity,
+                                   "alive": int(state.alive.sum())})
+
+        resize = loop.resize_train_state
+
+        def timed_resize(state, new_capacity):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = resize(state, new_capacity)
+            torch.cuda.synchronize()
+            resizes.append({"iteration": max(step_end, default=0) + 1, "from": state.capacity,
+                            "to": out.capacity, "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+
+        loop.resize_train_state = timed_resize
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            t = time.perf_counter()
+            state, scene, _ = loop.train(
+                cfg, opt, pipe, testing_iterations=(), saving_iterations=(iters,), quiet=True,
+                log_every=10, on_iteration=on_iteration, seed=0, device=DEVICE)
+            train_s = time.perf_counter() - t
+        finally:
+            loop.resize_train_state = resize
+        launches = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_counts(launches, TRAIN_KERNELS, iters, f"COLMAP train path, {iters} iterations")
+        check(len(scene.get_train_cameras()) == COLMAP["views"]
+              and scene.info.points.shape[0] == COLMAP["points"],
+              f"the loop read {len(scene.get_train_cameras())} views and "
+              f"{scene.info.points.shape[0]} init points")
+        n_alive = int(state.alive.sum())
+        check(resizes and resizes[0]["to"] > resizes[0]["from"] == COLMAP_INIT_ROWS,
+              f"the gaussian capacity never grew from {COLMAP_INIT_ROWS}: {resizes}, "
+              f"capacity and alive at the densify rounds {trajectory}")
+        check(state.capacity > COLMAP_INIT_ROWS and n_alive > COLMAP["points"],
+              f"capacity {state.capacity}, alive {n_alive} at the end: {trajectory}")
+        check(all(np.isfinite(loss)), f"non-finite loss: {loss}")
+        # a view's loss per iteration: the means of the first and the last
+        # ten iterations cover every view about once
+        check(np.mean(loss[-10:]) < np.mean(loss[:10]), f"loss did not fall: {loss}")
+        for k, v in state.params.items():
+            check(not bool(torch.isnan(v).any()), f"NaN in {k} after the COLMAP training")
+
+        step_ms = {it: (step_end[it] - step_end[it - 1]) * 1e3 for it in range(2, iters + 1)}
+        first, last = resizes[0]["iteration"], resizes[-1]["iteration"]
+        before = [ms for it, ms in step_ms.items() if it < first]
+        after = [ms for it, ms in step_ms.items() if it > last + 1 and it not in densify_its]
+        del state
+
+        reset_counts()
+        rc_ = render_cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet"])
+        render_launches = read_counts()
+        check(rc_ == 0, "render CLI returned non-zero on the COLMAP model")
+        check_counts(render_launches, RENDER_KERNELS, COLMAP["views"],
+                     "render CLI on the COLMAP model")
+        out = model / "train" / f"ours_{iters}"
+        psnr = []
+        for p in sorted((out / "renders").iterdir()):
+            a = np.asarray(Image.open(p), np.float32) / 255.0
+            g = np.asarray(Image.open(out / "gt" / p.name), np.float32) / 255.0
+            check(a.shape == (FULL["height"], FULL["width"], 3) and a.std() > 0.01,
+                  f"{p.name}: blank or misshapen render of the COLMAP model")
+            psnr.append(float(-10 * np.log10(np.mean((a - g) ** 2))))
+        check(len(psnr) == COLMAP["views"], f"render CLI wrote {len(psnr)} views")
+    return {
+        **COLMAP, "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
+        **scene_facts, "setup_s": setup_s, "train_s": train_s,
+        "step_ms_median_before_first_grow": statistics.median(before),
+        "step_ms_median_after_last_grow": statistics.median(after),
+        "steps_before_first_grow": len(before), "steps_after_last_grow": len(after),
+        "resizes": resizes, "trajectory": trajectory, "alive_end": n_alive,
+        "loss": loss, "peak_mem_gib": peak_gib, "launches": launches,
+        "render_cli_launches": render_launches, "render_cli_psnr_vs_gt": psnr,
+    }
+
+
+def phase_resize(state, device):
+    """Grow the train path's flagship state (2,097,152 rows, 1,048,576
+    alive, after its steps) to 3,145,728 rows and shrink it to 1,310,720:
+    the alive rows' params, Adam moments, counts and stats equal the
+    originals in alive order bit for bit, dead rows are sanitized, and each
+    resized state renders the original's image within atol 1e-6
+    (`tests/test_capacity.py:193`)."""
+    from types import SimpleNamespace
+
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+    from gsplat_tpu_torch.train.densify import DEAD_PARAMS
+    from gsplat_tpu_torch.train.resize import resize_train_state
+
+    n = int(state.alive.sum())
+    check(state.capacity == TRAIN_CAPACITY and n == FULL["n"],
+          f"the train state holds {n} alive of {state.capacity} rows")
+    _, _, camera = tiny_scene(n=1, width=FULL["width"], height=FULL["height"], device=device)
+    settings = make_render_settings(sh_degree=3)
+
+    def image(st):
+        with torch.no_grad():
+            return render(camera, SimpleNamespace(**st.params), st.alive, settings,
+                          [0.0, 0.0, 0.0], device=DEVICE)["render"]
+
+    def alive_rows(st):
+        idx = torch.nonzero(st.alive).flatten()
+        rows = {f"{name}.{k}": v[idx] for name in ("params", "adam_m", "adam_v")
+                for k, v in getattr(st, name).items()}
+        rows.update({f"stats.{k}": v[idx] for k, v in st.stats.items()})
+        rows["adam_counts"] = st.adam_counts[idx]
+        return rows
+
+    base = image(state)
+    want = alive_rows(state)
+    out = {}
+    for name, cap in RESIZE_TO.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new = resize_train_state(state, cap)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        check(new.capacity == cap and int(new.alive.sum()) == n,
+              f"{name}: {int(new.alive.sum())} alive of {new.capacity} rows")
+        got = alive_rows(new)
+        for k, v in want.items():
+            same = bitwise_equal(got[k], v) if v.is_floating_point() else torch.equal(got[k], v)
+            check(same, f"{name}: alive rows of {k} differ from the original")
+        if name == "shrink":
+            check(bool(new.alive[:n].all()), "shrink: the alive rows are not first")
+        dead = ~new.alive
+        p = new.params
+        check(bool((p["scaling"][dead] == DEAD_PARAMS["scaling"]).all()
+                   and (p["opacity"][dead] == DEAD_PARAMS["opacity"]).all()
+                   and (p["rotation"][dead] == p["rotation"].new_tensor([1.0, 0, 0, 0])).all()),
+              f"{name}: dead rows are not sanitized")
+        err = float((image(new) - base).abs().max())
+        check(err <= 1e-6, f"{name}: the resized state renders {err} away from the original")
+        out[name] = {"rows": cap, "ms": ms, "render_max_abs_err": err}
+        del new, got
+    return {"rows": TRAIN_CAPACITY, "alive": n, **out}
+
+
+def phase_bench():
+    """`python -m gsplat_tpu_torch.bench` as its `main` runs it, counts
+    reset just before and read just after: `bench.py`'s JSON keys, every
+    rate finite and positive, the device time per call finite, positive and
+    at most the host's; each point's kernels launched once per call."""
+    from gsplat_tpu_torch import bench
+
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_ = bench.main([])
+    launches = read_counts()
+    check(rc_ == 0, "the bench returned non-zero")
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check({"metric", "value", "unit", "vs_baseline", "points", "device"} <= set(res),
+          f"bench keys: {sorted(res)}")
+    pts = res["points"]
+    check(set(pts) == {"1M_gauss", "1M_gauss_f32_parity", "262k_gauss", "render_only"}
+          and set(pts["render_only"]) == {"1M_gauss_1080p"}, f"bench points: {sorted(pts)}")
+    rows = {**{k: v for k, v in pts.items() if k != "render_only"}, **pts["render_only"]}
+    for name, r in rows.items():
+        check(np.isfinite(r["pixels_per_s"]) and r["pixels_per_s"] > 0
+              and np.isfinite(r["device_ms"]) and 0 < r["device_ms"] <= r["ms"],
+              f"bench {name}: rate {r['pixels_per_s']}, device {r['device_ms']} ms, host {r['ms']} ms")
+    grad = 1 + bench.GRAD_ITERS + bench.PROFILED_CALLS  # calls per gradient point
+    fwd = 1 + bench.RENDER_ITERS + bench.PROFILED_CALLS
+    want = {"expand_instances": 3 * grad + fwd, "pack_instances": grad,
+            "pack_instances_hybrid": 2 * grad + fwd, "blend_fwd": 3 * grad + fwd,
+            "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad}
+    for name, got in launches.items():
+        check(got == want.get(name, 0), f"bench: {name} launched {got} times, "
+              f"want {want.get(name, 0)}")
+    return {"result": res, "launches": launches}
+
+
+def phase_entry():
+    """`gsplat_tpu_torch.entry.entry()` once, counts reset just before its
+    call and read just after: K1' (expand, float32 pack) and K2' once each,
+    a finite image of the tiny scene."""
+    from gsplat_tpu_torch.entry import entry
+
+    fn, args = entry()
+    reset_counts()
+    img = fn(*args).detach()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, RENDER_KERNELS, 1, "entry()")
+    check(img.shape == (192, 256, 3) and bool(torch.isfinite(img).all())
+          and float(img.std()) > 0.01, "entry(): bad image")
+    return {"launches": launches, "image_mean": float(img.mean()), "image_std": float(img.std())}
+
+
 def sass_counts(source, full=False):
     """{kernel function: {opcode: count}} of a built library, from
     `cuobjdump -sass`; with `full` the key is the whole mnemonic, its
@@ -2083,9 +2411,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.device import card_line
 
     device = torch.device(DEVICE)
-    smi = nvidia_smi_line()
+    smi = card_line()
     emit(phase="card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
@@ -2162,6 +2491,8 @@ def main() -> int:
     del k3_args
     t = time.perf_counter()
     emit(phase="densify", **phase_densify(state), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit(phase="resize", **phase_resize(state, device), seconds=time.perf_counter() - t)
     del state
     t = time.perf_counter()
     oit_train_summary, state, oit_train_rows, _ = phase_train(device, "oit")
@@ -2172,6 +2503,15 @@ def main() -> int:
         t = time.perf_counter()
         emit(phase="train_cli" if mode == "sorted" else "train_cli_oit",
              **phase_train_cli(mode), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    colmap_summary = phase_colmap_train(device)
+    emit(phase="colmap_train", **colmap_summary, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    bench_summary = phase_bench()
+    emit(phase="bench", **bench_summary, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    entry_summary = phase_entry()
+    emit(phase="entry", **entry_summary, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     ops_summary, ops_rows = phase_probe_ops(device)
@@ -2192,7 +2532,10 @@ def main() -> int:
                                    "oit_train": oit_train_summary["launches"],
                                    "oit_render": oit_render_summary["launches"],
                                    "bf16_render": bf16_summary["launches"],
-                                   "probe": probe_launches})
+                                   "probe": probe_launches,
+                                   "colmap_train": colmap_summary["launches"],
+                                   "bench": bench_summary["launches"],
+                                   "entry": entry_summary["launches"]})
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

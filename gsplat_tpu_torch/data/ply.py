@@ -1,7 +1,7 @@
 """Self-contained PLY codec (no external plyfile dependency).
 
-Copy of `gsplat_tpu/data/ply.py` without the native C++ fast path (that
-belongs to the data slice).
+Copy of `gsplat_tpu/data/ply.py`, with its native C++ fast path through the
+port's own build of the library (`data/native.py`).
 
 Supports the two layouts the reference uses:
 - simple point clouds (x/y/z, nx/ny/nz, red/green/blue u1) as written by
@@ -40,7 +40,13 @@ class PlyElementData:
 
 
 def read_ply_columns(path):
-    """Vertex element as {prop_name: (N,) float32}, by the Python parser."""
+    """Vertex element as {prop_name: (N,) float32}, using the native C++
+    parser (native/gsplat_native.cpp) when available, else the Python one."""
+    from gsplat_tpu_torch.data import native
+
+    res = native.ply_read_columns(path)
+    if res is not None:
+        return res[1]
     v = read_ply(path)["vertex"]
     return {nm: np.asarray(v[nm], np.float32) for nm in v.dtype.names}
 
@@ -196,7 +202,8 @@ def load_gaussian_ply(path):
     """Read a reference-layout snapshot -> dict of pre-activation numpy arrays.
 
     Mirrors `load_ply` (`gaussian_model.py:271-314`) including the sorted
-    f_rest index ordering and the (N, 3, B) -> (N, B, 3) transpose.
+    f_rest index ordering and the (N, 3, B) -> (N, B, 3) transpose. Uses the
+    native parser when available (snapshots are all-float binary PLYs).
     """
     v = read_ply_columns(path)
     names = list(v.keys())

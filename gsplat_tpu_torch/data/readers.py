@@ -1,22 +1,26 @@
-"""Scene-info readers: the Blender (NeRF-synthetic) layout.
+"""Scene-info readers: COLMAP and Blender (NeRF-synthetic) dataset layouts.
 
-Counterpart of `gsplat_tpu/data/readers.py` (`read_blender_scene_info`,
-`:222-257`), same splits, the same random-100k-point init for synthetic
-scenes and the same OpenGL -> COLMAP axis flip. COLMAP scenes are read by the
-data slice of the port (with `data/colmap.py`); until then
-`read_scene_info` refuses them with an error that says so.
+Counterpart of `gsplat_tpu/data/readers.py` (reference
+`scene/dataset_readers.py:145-315`): the same eval splits (llffhold=8 or
+test.txt), the same depth_params.json handling with med_scale, the same
+nerf++ normalization, the same random-100k-point init for synthetic scenes
+and the same camera-convention bridge (COLMAP qvec/tvec, or Blender c2w with
+the OpenGL -> COLMAP axis flip). COLMAP models are read through the port's
+`data/colmap.py`, the binary files by its native library when it builds.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
 from gsplat_tpu_torch.core.sh import sh_to_rgb
+from gsplat_tpu_torch.data import colmap as colmap_io
 from gsplat_tpu_torch.data import ply as ply_io
 from gsplat_tpu_torch.utils.graphics import focal2fov, fov2focal, world_to_view
 
@@ -62,6 +66,118 @@ def nerfpp_norm(cam_infos) -> dict:
     avg = centers.mean(axis=0)
     diagonal = np.linalg.norm(centers - avg, axis=1).max()
     return {"translate": -avg, "radius": float(diagonal * 1.1)}
+
+
+def _load_depth_params(path: str, depths: str) -> dict | None:
+    """depth_params.json with the med_scale augmentation
+    (`dataset_readers.py:157-177`). Raises if depths requested but file absent."""
+    if depths == "":
+        return None
+    params_file = os.path.join(path, "sparse/0", "depth_params.json")
+    try:
+        with open(params_file) as f:
+            depths_params = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"depth_params.json not found at '{params_file}' (required when --depths is set)"
+        )
+    all_scales = np.array([depths_params[k]["scale"] for k in depths_params])
+    med_scale = float(np.median(all_scales[all_scales > 0])) if (all_scales > 0).sum() else 0
+    for k in depths_params:
+        depths_params[k]["med_scale"] = med_scale
+    return depths_params
+
+
+def read_colmap_scene_info(
+    path, images=None, depths="", eval=False, train_test_exp=False, llffhold=8
+) -> SceneInfo:
+    """A COLMAP layout (`sparse/0` binary or text model, `images/`) ->
+    SceneInfo (`dataset_readers.py:179-226`). Writes `sparse/0/points3D.ply`
+    from the model's points on the first read and reads that file after."""
+    sparse = os.path.join(path, "sparse/0")
+    try:
+        extr = colmap_io.read_images_binary(os.path.join(sparse, "images.bin"))
+        intr = colmap_io.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+    except FileNotFoundError:
+        extr = colmap_io.read_images_text(os.path.join(sparse, "images.txt"))
+        intr = colmap_io.read_cameras_text(os.path.join(sparse, "cameras.txt"))
+
+    depths_params = _load_depth_params(path, depths)
+
+    if eval:
+        if llffhold:
+            names = sorted(extr[k].name for k in extr)
+            test_names = {nm for i, nm in enumerate(names) if i % llffhold == 0}
+        else:
+            with open(os.path.join(sparse, "test.txt")) as f:
+                test_names = {line.strip() for line in f}
+    else:
+        test_names = set()
+
+    reading_dir = "images" if images is None else images
+    depths_dir = os.path.join(path, depths) if depths != "" else ""
+
+    cam_infos = []
+    for key in extr:
+        im = extr[key]
+        cam = intr[im.camera_id]
+        if cam.model == "SIMPLE_PINHOLE":
+            fovy = focal2fov(cam.params[0], cam.height)
+            fovx = focal2fov(cam.params[0], cam.width)
+        elif cam.model == "PINHOLE":
+            fovy = focal2fov(cam.params[1], cam.height)
+            fovx = focal2fov(cam.params[0], cam.width)
+        else:
+            raise ValueError(
+                f"Colmap camera model {cam.model} not handled: only undistorted "
+                "(PINHOLE / SIMPLE_PINHOLE) datasets are supported"
+            )
+        stem = im.name[: -(len(im.name.split(".")[-1]) + 1)]
+        depth_params = None
+        if depths_params is not None:
+            depth_params = depths_params.get(stem)
+            if depth_params is None:
+                print(f"{key} not found in depths_params", file=sys.stderr)
+        cam_infos.append(
+            CameraInfo(
+                uid=cam.id,
+                R=np.transpose(colmap_io.qvec2rotmat(im.qvec)),
+                T=np.array(im.tvec),
+                fovy=fovy,
+                fovx=fovx,
+                image_path=os.path.join(path, reading_dir, im.name),
+                image_name=im.name,
+                width=cam.width,
+                height=cam.height,
+                is_test=im.name in test_names,
+                depth_path=os.path.join(depths_dir, f"{stem}.png") if depths_dir else "",
+                depth_params=depth_params,
+            )
+        )
+    cam_infos.sort(key=lambda c: c.image_name)
+
+    train_cams = [c for c in cam_infos if train_test_exp or not c.is_test]
+    test_cams = [c for c in cam_infos if c.is_test]
+
+    ply_path = os.path.join(sparse, "points3D.ply")
+    if not os.path.exists(ply_path):
+        try:
+            xyz, rgb, _ = colmap_io.read_points3d_binary(os.path.join(sparse, "points3D.bin"))
+        except FileNotFoundError:
+            xyz, rgb, _ = colmap_io.read_points3d_text(os.path.join(sparse, "points3D.txt"))
+        ply_io.write_point_cloud(ply_path, xyz, rgb)
+    points, colors, normals = ply_io.read_point_cloud(ply_path)
+
+    return SceneInfo(
+        points=points,
+        colors=colors,
+        normals=normals,
+        train_cameras=train_cams,
+        test_cameras=test_cams,
+        nerf_normalization=nerfpp_norm(train_cams),
+        ply_path=ply_path,
+        is_nerf_synthetic=False,
+    )
 
 
 def _read_transforms(path, transformsfile, depths_dir, is_test, extension=".png"):
@@ -145,11 +261,9 @@ def read_blender_scene_info(path, white_background=False, depths="", eval=False,
 def read_scene_info(path, **kw) -> SceneInfo:
     """Dataset-type dispatch (`scene/__init__.py:43-49`)."""
     if os.path.exists(os.path.join(path, "sparse")):
-        raise NotImplementedError(
-            f"{path} is a COLMAP scene: gsplat_tpu_torch reads COLMAP scenes "
-            "from its data slice on (data/colmap.py is not ported yet); "
-            "Blender-format scenes are supported"
-        )
+        kw.pop("white_background", None)
+        kw.pop("extension", None)
+        return read_colmap_scene_info(path, **kw)
     if os.path.exists(os.path.join(path, "transforms_train.json")):
         for k in ("images", "train_test_exp", "llffhold"):
             kw.pop(k, None)

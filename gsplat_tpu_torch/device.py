@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points.
+"""Device resolution shared by the port's entry points, and the card's
+identification line that every measurement is printed beside.
 
 Entry points run on `cuda` unless the caller asks for the CPU. With no device
 given and no card present they raise: the port never falls back to the CPU
@@ -6,6 +7,8 @@ on its own.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -28,3 +31,14 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (a card may be set below
+    its maximum power and then runs slower under load)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]

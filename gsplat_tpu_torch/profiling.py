@@ -1,0 +1,76 @@
+"""Device time from a `torch.profiler` trace.
+
+The union of the device's kernel, copy and set intervals over a few
+profiled calls: how long the card was busy, with no host gap between
+launches counted and no interval counted twice. `python -m
+gsplat_tpu_torch.bench` reports it beside each rate and `chip_smoke.py`
+reads its busy shares with it, so the two cannot disagree.
+"""
+
+from __future__ import annotations
+
+import json
+import tempfile
+from pathlib import Path
+
+import torch
+
+# trace categories of the chrome trace that `torch.profiler` exports
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def interval_union(spans) -> float:
+    """Total length covered by the (start, end) spans."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def profile_calls(fn, calls: int):
+    """Run `fn()` `calls` times under `torch.profiler` (CPU and CUDA
+    activity), ending in a synchronize; returns the finished profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def busy_span_us(prof):
+    """(busy, span) in microseconds of a finished profile: `span` runs from
+    the first host event to the last event's end, `busy` is the union of
+    the device intervals inside it, so busy <= span."""
+    with tempfile.TemporaryDirectory(prefix="gsplat_trace_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+              if e.get("ph") == "X" and "dur" in e]
+
+    def spans(cats):
+        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in events if e.get("cat") in cats]
+
+    device, host = spans(DEVICE_CATS), spans(HOST_CATS)
+    if not device or not host:
+        raise RuntimeError("profiler trace holds no device or no host events")
+    t0 = min(s for s, _ in host)
+    t1 = max(e for _, e in device + host)
+    busy = interval_union([(max(s, t0), min(e, t1)) for s, e in device if min(e, t1) > max(s, t0)])
+    return busy, t1 - t0
+
+
+def device_ms_per_call(fn, calls: int = 3) -> float:
+    """The card's busy time per call of `fn()`, over `calls` profiled calls."""
+    busy, _ = busy_span_us(profile_calls(fn, calls))
+    return busy / 1e3 / calls

@@ -4,15 +4,15 @@ Counterpart of `gsplat_tpu/train/loop.py`. The device work is the train
 step (`train/step.py`); this loop supplies what stays on the host: camera
 sampling without replacement from `random.Random(seed)`, the xyz, exposure
 and depth-weight schedules, the SH-degree ramp, the densify and
-opacity-reset cadence, snapshot saving and the progress log.
+opacity-reset cadence, the gaussian-capacity controller with its resize
+(`capacity.py`, `train/resize.py`), the per-view pixel cache, snapshot
+saving and the progress log.
 
 Not in this slice, each refused or skipped with a message: `--mesh`
 (multi-device), checkpoints (`checkpoint_iterations`, `start_checkpoint`,
-`checkpoint_every`), tensorboard, the `testing_iterations` evaluation
-sweeps, and the gaussian-capacity controller (the capacity stays what
-`init_from_pcd` gave: `pipe.capacity`, or the init count rounded up). The
-instance buffer is sized per frame, so there is no instance-capacity
-controller to port.
+`checkpoint_every`), tensorboard and the `testing_iterations` evaluation
+sweeps. The instance buffer is sized per frame, so there is no
+instance-capacity controller to port.
 """
 
 from __future__ import annotations
@@ -24,11 +24,13 @@ import time
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.capacity import CapacityController
 from gsplat_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from gsplat_tpu_torch.core.types import make_render_settings
 from gsplat_tpu_torch.data.scene import Scene
 from gsplat_tpu_torch.device import resolve_device
 from gsplat_tpu_torch.model import init_from_pcd
+from gsplat_tpu_torch.train.resize import resize_train_state
 from gsplat_tpu_torch.train.step import (
     init_train_state,
     make_densify_step,
@@ -48,19 +50,67 @@ def _refuse_unported(pipe, checkpoint_iterations, start_checkpoint, checkpoint_e
             "snapshots at saving_iterations are")
 
 
-def _camera_batch(cam, device, cache):
-    """One view's pixel data on the device, uploaded once per camera."""
-    if cam.uid not in cache:
+# Device-memory budget of the pixel cache. A lego/garden-class scene fits
+# entirely (the reference keeps every camera on the GPU up front,
+# `scene/cameras.py:57`); a city-scale multi-thousand-view scene would not,
+# so beyond the budget the cache evicts the least recently used views and
+# pays the upload again on a revisit (`gsplat_tpu/train/loop.py:39-92`).
+PIXEL_CACHE_BYTES = 6 << 30
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class PixelCache:
+    """Each view's pixel data on the device, uploaded once, LRU-evicted
+    beyond `budget` bytes.
+
+    Views are keyed by `(id(cam.image), cam.uid)`, as in the JAX loop: `uid`
+    is a per-split index (`data/scene.py`), so the train and test views share
+    uids and the key must also tell their images apart. Depthless views of
+    one shape share one zeros tensor, which is never evicted.
+    """
+
+    def __init__(self, device, budget: int = PIXEL_CACHE_BYTES):
+        self.device = device
+        self.budget = budget
+        self.entries = {}  # insertion order is recency order
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(v) for v in self.entries.values() if isinstance(v, tuple))
+
+    def get(self, cam):
+        """(gt, alpha mask, inverse depth, depth mask) of `cam` on the device."""
+        key = (id(cam.image), cam.uid)
+        if key in self.entries:
+            val = self.entries.pop(key)  # reinsert: most recently used
+            self.entries[key] = val
+            return val
         h, w = cam.image.shape[:2]
-        gt = torch.as_tensor(cam.image, device=device)
-        mask = torch.as_tensor(cam.alpha_mask, device=device)
+        dev = self.device
+        gt = torch.as_tensor(cam.image, device=dev)
+        mask = torch.as_tensor(cam.alpha_mask, device=dev)
         if cam.invdepth is not None:
-            invd = torch.as_tensor(cam.invdepth, device=device)
-            dmask = torch.as_tensor(cam.depth_mask[..., 0], device=device)
+            invd = torch.as_tensor(cam.invdepth, device=dev)
+            dmask = torch.as_tensor(cam.depth_mask[..., 0], device=dev)
         else:
-            invd = dmask = torch.zeros((h, w), dtype=torch.float32, device=device)
-        cache[cam.uid] = (gt, mask, invd, dmask)
-    return cache[cam.uid]
+            zkey = ("z", h, w)
+            if zkey not in self.entries:
+                self.entries[zkey] = torch.zeros((h, w), dtype=torch.float32, device=dev)
+            invd = dmask = self.entries[zkey]
+        entry = (gt, mask, invd, dmask)
+        # evict down to the budget with the incoming entry counted, so the
+        # cache never overshoots by one view (a single view over the budget
+        # is still cached once everything else is gone: it is in use)
+        new_bytes = _nbytes(entry)
+        while self.nbytes() + new_bytes > self.budget:
+            oldest = next((k for k, v in self.entries.items() if isinstance(v, tuple)), None)
+            if oldest is None:
+                break
+            self.entries.pop(oldest)
+        self.entries[key] = entry
+        return entry
 
 
 def train(
@@ -100,8 +150,7 @@ def train(
     )
     state = init_train_state(params, alive, num_images=len(train_cams), seed=seed)
     if not quiet:
-        print(f"[init] {int(alive.sum())} gaussians in {state.capacity} rows on {dev}; the "
-              "gaussian-capacity controller is not ported (capacity stays fixed)")
+        print(f"[init] {int(alive.sum())} gaussians in {state.capacity} rows on {dev}")
 
     extent = float(scene.cameras_extent)
     xyz_sched = expon_lr_func(
@@ -138,7 +187,18 @@ def train(
 
     rng = random.Random(seed)
     np_rng = np.random.default_rng(seed)
-    pixels = {}
+    # gaussian-axis controller, as the JAX loop sets it: observed once per
+    # densify round, so a 10-observation window spans ~1000 iterations;
+    # pipe.capacity > 0 pins the capacity (no controller)
+    gauss_ctl = (
+        CapacityController(
+            state.capacity, window=10, event_window=3, floor=4096,
+            grow_frac=0.75, grow_margin=1.5, shrink_margin=1.6,
+        )
+        if not pipe.capacity
+        else None
+    )
+    pixels = PixelCache(dev)
     viewpoint_stack = []
     ema_loss = ema_depth = 0.0
     results = {"test": {}, "loss": {}}
@@ -156,7 +216,7 @@ def train(
             viewpoint_stack = list(range(len(train_cams)))
         cam = train_cams[viewpoint_stack.pop(rng.randrange(len(viewpoint_stack)))]
 
-        gt, mask, invd, dmask = _camera_batch(cam, dev, pixels)
+        gt, mask, invd, dmask = pixels.get(cam)
         bg = (torch.as_tensor(np_rng.random(3), dtype=torch.float32, device=dev)
               if opt.random_background else bg_color)
         depth_w = depth_sched(iteration) if cam.depth_reliable else 0.0
@@ -176,6 +236,17 @@ def train(
             if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
                 size_threshold = 20 if iteration > opt.opacity_reset_interval else 0
                 state, dinfo = densify_step(state, extent, size_threshold)
+                n_alive = dinfo["n_alive"]
+                if gauss_ctl is not None:
+                    if dinfo["n_pruned"] * 3 >= n_alive:
+                        # mass prune (opacity-reset aftermath): re-evaluate
+                        # the capacity on a short window
+                        gauss_ctl.notify_structural_change()
+                    new_gcap = gauss_ctl.update(n_alive, dinfo["n_dropped"])
+                    if new_gcap is not None:
+                        state = resize_train_state(state, new_gcap)
+                        print(f"[auto] it {iteration}: alive {n_alive} — "
+                              f"gaussian capacity -> {new_gcap}")
                 if not quiet and iteration % 1000 == 0:
                     print(
                         f"[densify {iteration}] alive={dinfo['n_alive']} "
