@@ -114,6 +114,34 @@ JSON line per phase:
    count past 262,144, the loss falls; step ms before the first grow and
    after the last, each resize's ms, the capacity and alive trajectory,
    peak memory; then the render CLI on the saved model (8 views);
+   `checkpoint_resume`: a 16-view COLMAP scene of the same kind (eval holds
+   out views 0 and 8) trained by run A to 120 iterations (rolling
+   checkpoints every 40 on the loop's worker thread, `chkpnt120.pkl`,
+   evaluations at 60 and 120) and by run B resumed from `chkpnt120.pkl` to
+   200, counts reset around each run (K1' expand and hybrid pack and K2' per
+   iteration and per evaluation render, K3' and K4' per iteration): the
+   loaded state is A's final state bit for bit, generator included; the
+   rolling checkpoint holds 120 after A's flush; B starts at 121 with A's
+   SH degree, its capacity controller at A's last capacity and no resize;
+   `evaluate_test` equals a direct render + `losses.psnr` within 1e-6 of
+   max(1, |value|); at 200 B's test PSNR is finite and its sweep's train
+   views' PSNR at least A's at 60; run C, uninterrupted to 200, beside them;
+   checkpoint bytes, sync save and load ms, the steps that overlap a
+   worker-thread write against the others, `evaluate_test` ms per 1080p
+   view (ground truth uploaded, then cached); the render CLI on B's test
+   views; the checkpoints are deleted;
+   `metrics`: `cli.metrics` on those 1080p renders with seeded synthetic
+   VGG16 LPIPS weights (14.7 M weights) on the card, LPIPS(x, x) < 1e-6,
+   LPIPS and SSIM + PSNR ms per 1080p pair, and on a 270x480 crop the card
+   against `--device cpu` within relative 1e-5 per metric and view;
+   `train_cli_ckpt`: the train CLI with `--checkpoint_every 10
+   --profile_steps 3 --test_iterations 20 30`, resumed from its rolling
+   checkpoint to 40 (the profile trace names K2' and K3'; the resumed run
+   prints its test PSNR), then `cli.train_supervised` to its end in a
+   child process; `viewer`: `NetworkGUI(port=0)` answers three 1920x1080
+   loopback requests of the flagship scene (scaling modifier 1.0, 0.5,
+   1.0) with exactly the bytes of the port's render, K1' and K2' once per
+   request, and the round-trip ms;
    `bench`: `python -m gsplat_tpu_torch.bench`'s `main` (the top-level
    `bench.py`'s four points: 1M gaussians hybrid and float32 and 262,144
    hybrid, forward and backward, 1M forward alone), its JSON keys, finite
@@ -141,7 +169,9 @@ JSON line per phase:
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
    P3' and P4'; the COLMAP train path's, the bench's and the entry's counts
-   beside them. The render and train paths launch no probe kernel.
+   beside them, and those of the checkpoint runs A and B, the direct
+   `evaluate_test`, the two train CLI runs of `train_cli_ckpt` and the
+   viewer. The render and train paths launch no probe kernel.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -151,6 +181,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -1223,8 +1254,9 @@ def phase_oit_render(device):
     return summary, {"oit_fwd": row}
 
 
-def write_blender_scene(root: Path, size=800, n=200_000, seed=0):
-    """A seeded 3-view Blender-format scene and a PLY snapshot of n gaussians."""
+def write_blender_scene(root: Path, size=800, n=200_000, seed=0, test_views=0):
+    """A seeded 3-view Blender-format scene (and `test_views` held-out views
+    between them) and a PLY snapshot of n gaussians."""
     from PIL import Image
 
     from gsplat_tpu_torch.data.ply import save_gaussian_ply
@@ -1233,8 +1265,8 @@ def write_blender_scene(root: Path, size=800, n=200_000, seed=0):
     src = root / "scene"
     src.mkdir()
     frames = []
-    for i in range(3):
-        angle = i * 2.0 * np.pi / 3
+    for i in range(3 + test_views):
+        angle = (i if i < 3 else i - 2.5) * 2.0 * np.pi / 3
         pos = np.array([4 * np.sin(angle), 0.5, 4 * np.cos(angle)])
         z = pos / np.linalg.norm(pos)  # OpenGL: the camera looks down -z
         x = np.cross([0.0, 1.0, 0.0], z)
@@ -1245,7 +1277,7 @@ def write_blender_scene(root: Path, size=800, n=200_000, seed=0):
         img[..., 3] = 255
         Image.fromarray(img).save(src / f"r_{i}.png")
         frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
-    for split, fr in (("train", frames), ("test", [])):
+    for split, fr in (("train", frames[:3]), ("test", frames[3:])):
         (src / f"transforms_{split}.json").write_text(
             json.dumps({"camera_angle_x": 0.69, "frames": fr}))
     model = root / "model"
@@ -1735,10 +1767,10 @@ class NativeCalls:
             setattr(self.native, name, fn)
 
 
-def write_colmap_scene(root: Path, device):
+def write_colmap_scene(root: Path, device, views=COLMAP["views"]):
     """A COLMAP scene of the flagship cloud, written by the port's
     `colmap.write_model`: one PINHOLE camera at 1920x1080 with the flagship
-    camera's horizontal field of view, `COLMAP["views"]` posed views, and
+    camera's horizontal field of view, `views` posed views on a ring, and
     `points3D.bin` holding a noisy subset of the cloud's centres with their
     DC colours (as `scripts/make_fixtures.py:145-272` builds its points).
     The model is read back once through the port's reader, which must take
@@ -1760,14 +1792,14 @@ def write_colmap_scene(root: Path, device):
     cams = {1: colmap.ColmapCamera(1, "PINHOLE", w, h, np.array([focal, focal, w / 2, h / 2]))}
     images = {i + 1: colmap.ColmapImage(i + 1, colmap.rotmat2qvec(R), t, 1, f"v_{i:03d}.png",
                                         np.zeros((0, 2)), np.zeros((0,), np.int64))
-              for i, (R, t) in enumerate(ring_poses(COLMAP["views"]))}
+              for i, (R, t) in enumerate(ring_poses(views))}
     rng = np.random.default_rng(0)
     sel = np.sort(rng.choice(FULL["n"], COLMAP["points"], replace=False))
     xyz = params.xyz.detach().cpu().numpy()[sel].astype(np.float64)
     xyz += rng.normal(0, 0.01, xyz.shape)
     dc = params.features_dc.detach().cpu().numpy()[sel, 0]
     rgb = (np.clip(sh_to_rgb(dc), 0.0, 1.0) * 255).astype(np.uint8)
-    src = root / "colmap_scene"
+    src = root / f"colmap_scene_{views}"
     (src / "images").mkdir(parents=True)
     t = time.perf_counter()
     colmap.write_model(cams, images, (xyz, rgb, np.zeros(len(sel))), str(src / "sparse" / "0"))
@@ -1777,7 +1809,7 @@ def write_colmap_scene(root: Path, device):
         info = read_scene_info(str(src))
     check(all(n == 1 for n in nat.calls.values()),
           f"the COLMAP reader did not take the native path: {nat.calls}")
-    check(len(info.train_cameras) == COLMAP["views"] and info.points.shape == (COLMAP["points"], 3),
+    check(len(info.train_cameras) == views and info.points.shape == (COLMAP["points"], 3),
           f"read {len(info.train_cameras)} views and {info.points.shape[0]} points")
 
     settings = make_render_settings(sh_degree=3, packet_dtype="float32")
@@ -1790,7 +1822,7 @@ def write_colmap_scene(root: Path, device):
         Image.fromarray((img.cpu().numpy() * 255 + 0.5).astype(np.uint8)).save(
             src / "images" / ci.image_name)
     gt_launches = read_counts()
-    check_counts(gt_launches, RENDER_KERNELS, COLMAP["views"], "COLMAP ground-truth renders")
+    check_counts(gt_launches, RENDER_KERNELS, views, "COLMAP ground-truth renders")
     return src, {"native_calls": nat.calls, "write_model_s": write_s,
                  "gt_launches": gt_launches}
 
@@ -1974,6 +2006,573 @@ def phase_resize(state, device):
         out[name] = {"rows": cap, "ms": ms, "render_max_abs_err": err}
         del new, got
     return {"rows": TRAIN_CAPACITY, "alive": n, **out}
+
+
+# the checkpoint path: a 16-view COLMAP scene of the flagship cloud (eval
+# holds out views 0 and 8, llffhold 8), trained with `COLMAP`'s densify
+# settings: run A to 120 iterations with rolling checkpoints, run B resumed
+# from A's chkpnt120.pkl to 200
+CKPT = dict(views=16, iterations_a=120, iterations_b=200, checkpoint_every=40,
+            testing_a=(60, 120), testing_b=(200,))
+EVAL_TRAIN_VIEWS = 5  # the sweep's train views 5, 10, ..., 25 mod their count
+LPIPS_CROP = (270, 480)  # the metrics' card-vs-CPU comparison crop
+METRIC_REL = 1e-5
+
+
+class Swaps:
+    """Module attributes swapped for wrappers while active."""
+
+    def __init__(self, module, **wrappers):
+        self.module, self.wrappers, self.saved = module, wrappers, {}
+
+    def __enter__(self):
+        for name, make in self.wrappers.items():
+            self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, make(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def eval_counts(iterations, renders):
+    """Launches of a training run with `renders` evaluation renders: K1'
+    (expand, hybrid pack) and K2' per iteration and per render, K3' and K4'
+    per iteration."""
+    return {"expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
+            "blend_fwd": iterations + renders, "blend_bwd": iterations,
+            "reduce_by_gid": iterations}
+
+
+def check_launches(counts, want, what):
+    for name, got in counts.items():
+        check(got == want.get(name, 0), f"{what}: {name} launched {got} times, "
+              f"want {want.get(name, 0)}")
+
+
+def states_equal(a, b):
+    """Every tensor of two train states bit for bit, the generator states and
+    the step equal."""
+    from gsplat_tpu_torch.convert import train_state_tree
+
+    ta, tb = train_state_tree(a), train_state_tree(b)
+    for k, v in ta.items():
+        if isinstance(v, dict):
+            for f, t in v.items():
+                check(bitwise_equal(t, tb[k][f]), f"loaded state differs in {k}.{f}")
+        elif isinstance(v, torch.Tensor):
+            check(bitwise_equal(v, tb[k]), f"loaded state differs in {k}")
+        elif isinstance(v, np.ndarray):
+            check(np.array_equal(v, tb[k]), f"loaded state differs in {k}")
+        else:
+            check(v == tb[k], f"loaded state differs in {k}: {v} != {tb[k]}")
+
+
+def phase_checkpoint_resume(device, root: Path):
+    """Run A trains the 16-view COLMAP scene 120 iterations (densify at 40,
+    80, 120 as `colmap_train`; rolling checkpoints every 40 on the worker
+    thread, chkpnt120.pkl at 120, evaluations at 60 and 120); run B resumes
+    from chkpnt120.pkl to 200 (rolling checkpoints every 40, evaluation and
+    snapshot at 200). Counts are reset just before each run and read just
+    after. Checks: the loaded state equals A's final state bit for bit,
+    generator included; the rolling checkpoint holds 120 after A's flush; B
+    starts at 121 with A's SH degree and its controller at the
+    checkpoint's capacity, with no resize; `evaluate_test` equals a direct
+    render + `losses.psnr` of the test views within 1e-6 relative to
+    max(1, |value|); at 200 B's test PSNR is finite and its sweep's train
+    views at least as sharp as at 60. Run C trains the same scene
+    uninterrupted to 200, evaluated at 60, 120 and 200, beside A and B. The
+    render CLI then renders B's test views (kept for `metrics`); the
+    checkpoints are deleted."""
+    import threading
+    from types import SimpleNamespace
+
+    from gsplat_tpu_torch.cli import render as render_cli
+    from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                                         save_cfg_args)
+    from gsplat_tpu_torch.convert import read_checkpoint
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.train import loop, losses
+
+    t = time.perf_counter()
+    src, _ = write_colmap_scene(root, device, views=CKPT["views"])
+    setup_s = time.perf_counter() - t
+    model = root / "ckpt_model"
+    cfg = ModelConfig(source_path=str(src), model_path=str(model), resolution=1, sh_degree=3,
+                      eval=True)
+    save_cfg_args(str(model), cfg)
+    opt_a = OptimizationConfig(
+        iterations=CKPT["iterations_a"], densify_from_iter=COLMAP["densify_from_iter"],
+        densification_interval=COLMAP["densification_interval"],
+        densify_until_iter=COLMAP["densify_until_iter"],
+        densify_grad_threshold=COLMAP["grad_threshold"])
+    pipe = PipelineConfig(capacity=0, packet_dtype="hybrid")
+    chkpnt = model / f"chkpnt{CKPT['iterations_a']}.pkl"
+    rolling = model / "rolling_chkpnt.pkl"
+
+    rec = {"sh": [], "ctl": [], "resizes": [], "save_ms": [], "load_ms": [], "d2h": [],
+           "writes": [], "loaded": None}
+
+    # the loop's own stream: a device-wide synchronize would also wait for
+    # the checkpoint writer's copy on its side stream, which the loop never does
+    def sync():
+        torch.cuda.current_stream().synchronize()
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def loading(fn):
+        def wrapper(*a, **kw):
+            state, it = timed("load_ms", fn)(*a, **kw)
+            rec["loaded"] = (state, state.rng.get_state().clone(), it)
+            return state, it
+        return wrapper
+
+    def span(key):  # wall-clock spans of the writer thread's copy and write
+        def make(fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if threading.current_thread().name.startswith("ckpt"):
+                    rec[key].append((t0, time.perf_counter()))
+                return out
+            return wrapper
+        return make
+
+    def make_step(fn):
+        def wrapper(opt, settings, **kw):
+            rec["sh"].append(settings.sh_degree)
+            return fn(opt, settings, **kw)
+        return wrapper
+
+    def controller(cls):
+        class Recording(cls):
+            def __init__(self, capacity, **kw):
+                rec["ctl"].append(capacity)
+                super().__init__(capacity, **kw)
+        return Recording
+
+    def resize(fn):
+        def wrapper(state, cap):
+            rec["resizes"].append((state.capacity, cap))
+            return fn(state, cap)
+        return wrapper
+
+    runs = {}
+    with Swaps(loop, save_checkpoint=lambda fn: timed("save_ms", fn), load_checkpoint=loading,
+               tree_to_numpy=span("d2h"), write_checkpoint=span("writes"),
+               make_train_step=make_step, CapacityController=controller,
+               resize_train_state=resize):
+        for name, opt, kw in (
+                ("a", opt_a, dict(testing_iterations=CKPT["testing_a"], saving_iterations=(),
+                                  checkpoint_iterations=(CKPT["iterations_a"],))),
+                ("b", dataclasses.replace(opt_a, iterations=CKPT["iterations_b"]),
+                 dict(testing_iterations=CKPT["testing_b"],
+                      saving_iterations=(CKPT["iterations_b"],), start_checkpoint=str(chkpnt)))):
+            ends = {}
+
+            def on_iteration(it, state, metrics, ends=ends):
+                sync()
+                ends[it] = time.perf_counter()
+
+            marks = {k: len(v) for k, v in rec.items() if isinstance(v, list)}
+            reset_counts()
+            t0 = time.perf_counter()
+            state, scene, results = loop.train(
+                cfg, opt, pipe, quiet=True, log_every=10, on_iteration=on_iteration, seed=0,
+                checkpoint_every=CKPT["checkpoint_every"], device=DEVICE, **kw)
+            runs[name] = dict(state=state, results=results, ends=ends, t0=t0,
+                              wall_s=time.perf_counter() - t0, launches=read_counts(),
+                              **{k: rec[k][m:] for k, m in marks.items()})
+            if name == "a":
+                check(read_checkpoint(str(rolling))["iteration"] == CKPT["iterations_a"],
+                      "the rolling checkpoint after A's flush does not hold iteration 120")
+    a, b = runs["a"], runs["b"]
+    test_cams, train_cams = scene.get_test_cameras(), scene.get_train_cameras()
+    check(len(test_cams) == 2 and len(train_cams) == CKPT["views"] - 2,
+          f"{len(test_cams)} test and {len(train_cams)} train views, want 2 and 14")
+    renders = 2 + EVAL_TRAIN_VIEWS
+    check_launches(a["launches"], eval_counts(CKPT["iterations_a"], renders * len(CKPT["testing_a"])),
+                   "checkpoint run A")
+    check_launches(b["launches"], eval_counts(CKPT["iterations_b"] - CKPT["iterations_a"],
+                                              renders * len(CKPT["testing_b"])),
+                   "checkpoint run B")
+
+    # the round trip: what B loaded is A's final state, bit for bit
+    loaded, loaded_rng, it = rec["loaded"]
+    check(it == CKPT["iterations_a"], f"B loaded iteration {it}")
+    states_equal(loaded, a["state"])
+    check(torch.equal(loaded_rng, a["state"].rng.get_state()),
+          "the loaded generator state differs from A's")
+    check(min(b["ends"]) == CKPT["iterations_a"] + 1, f"B started at {min(b['ends'])}")
+    check(b["sh"] == a["sh"][-1:], f"SH degrees: A built {a['sh']}, B built {b['sh']}")
+    check(b["ctl"] == [a["state"].capacity] and not b["resizes"]
+          and b["state"].capacity == a["state"].capacity,
+          f"B's controller started at {b['ctl']} (A ended at {a['state'].capacity}), "
+          f"resizes {b['resizes']}")
+    check(a["ctl"] == [COLMAP_INIT_ROWS] and a["resizes"], f"A's controller {a['ctl']}, "
+          f"resizes {a['resizes']}")
+
+    # evaluate_test against a direct render of the test views (counted apart)
+    settings = make_render_settings(sh_degree=a["sh"][-1], packet_dtype="hybrid")
+    bg = torch.zeros(3, device=device)
+    st = a["state"]
+    pixels = loop.PixelCache(device)
+    reset_counts()
+    eval_ms = []  # the first sweep uploads the ground truth, the second reads it cached
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = loop.evaluate_test(st, test_cams, settings, bg, pixels)
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    eval_launches = read_counts()
+    check_launches(eval_launches, {"expand_instances": 4, "pack_instances_hybrid": 4,
+                                   "blend_fwd": 4}, "evaluate_test, 2 views twice")
+    l1s, psnrs = [], []
+    with torch.no_grad():
+        for cam in test_cams:
+            img = torch.clamp(render(cam.camera, SimpleNamespace(**st.params), st.alive, settings,
+                                     bg, device=DEVICE)["render"], 0.0, 1.0)
+            gt = torch.as_tensor(cam.image, device=device)
+            l1s.append(float(losses.l1_loss(img, gt)))
+            psnrs.append(float(losses.psnr(img, gt)))
+    direct = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
+    for k, v in direct.items():
+        check(abs(ev[k] - v) <= 1e-6 * max(1.0, abs(v)),
+              f"evaluate_test {k} {ev[k]} against the direct render's {v}")
+    # progress across the resume: the sweep's train views at 200 against 60.
+    # The held-out views' PSNR is reported beside an uninterrupted run C's,
+    # not ordered: after the split of every gaussian at 120 it moves by less
+    # than its run-to-run spread (PERF.md §6)
+    first, last = CKPT["testing_a"][0], CKPT["testing_b"][-1]
+    fit_a, fit_b = a["results"]["train"][first]["psnr"], b["results"]["train"][last]["psnr"]
+    check(np.isfinite(b["results"]["test"][last]["psnr"]) and fit_b >= fit_a,
+          f"PSNR fell across the resume: train views {fit_a} at {first}, {fit_b} at {last}; "
+          f"test views {a['results']['test']} then {b['results']['test']}")
+    t0 = time.perf_counter()
+    _, _, uninterrupted = loop.train(
+        dataclasses.replace(cfg, model_path=""), dataclasses.replace(opt_a, iterations=last),
+        pipe, testing_iterations=CKPT["testing_a"] + CKPT["testing_b"], saving_iterations=(),
+        quiet=True, log_every=10, seed=0, device=DEVICE)
+    c_s = time.perf_counter() - t0
+
+    # steps that overlap a write on the worker thread (its copy to the host
+    # through the end of its pickle), against the others
+    def steps(run):
+        its = sorted(run["ends"])
+        out = []
+        for prev, it in zip(its, its[1:]):
+            t0, t1 = run["ends"][prev], run["ends"][it]
+            busy = any(s < t1 and e > t0 for s, e in run["d2h"] + run["writes"])
+            out.append((it, (t1 - t0) * 1e3, busy))
+        return out
+
+    overlap = {}
+    for name in ("a", "b"):
+        sts = steps(runs[name])
+        quiet_ms = [ms for it, ms, busy in sts if not busy]
+        busy_ms = [ms for it, ms, busy in sts if busy]
+        overlap[name] = {
+            "step_ms_median": statistics.median(quiet_ms) if quiet_ms else None,
+            "overlapping_steps": len(busy_ms),
+            "overlapping_step_ms_median": statistics.median(busy_ms) if busy_ms else None,
+            "overlapping_step_ms_max": max(busy_ms) if busy_ms else None,
+            "first_overlapping": [(it, ms) for it, ms, busy in sts if busy][:3],
+            "d2h_ms": [(e - s) * 1e3 for s, e in runs[name]["d2h"]],
+            "write_ms": [(e - s) * 1e3 for s, e in runs[name]["writes"]],
+        }
+    nbytes = chkpnt.stat().st_size
+
+    reset_counts()
+    rc_ = render_cli.main(["-m", str(model), "-s", str(src), "--device", DEVICE, "--quiet",
+                           "--skip_train"])
+    render_launches = read_counts()
+    check(rc_ == 0, "render CLI returned non-zero on the resumed model")
+    check_counts(render_launches, RENDER_KERNELS, 2, "render CLI, 2 test views")
+    chkpnt.unlink()
+    rolling.unlink()
+    return {
+        **CKPT, "size": f"{FULL['width']}x{FULL['height']}", "setup_s": setup_s,
+        "checkpoint_bytes": nbytes, "bytes_per_row": nbytes / a["state"].capacity,
+        "sync_save_ms": a["save_ms"], "load_ms": b["load_ms"],
+        "overlap": overlap, "evaluate_test_ms_per_view": [ms / len(test_cams) for ms in eval_ms],
+        "evaluate_test": ev, "direct": direct,
+        "capacity": {"a_start": a["ctl"], "a_resizes": a["resizes"], "a_end": a["state"].capacity,
+                     "b_start": b["ctl"], "b_end": b["state"].capacity},
+        "alive_end": int(b["state"].alive.sum()), "sh_degree": b["sh"],
+        "test": {**a["results"]["test"], **b["results"]["test"]},
+        "train_views": {**a["results"]["train"], **b["results"]["train"]},
+        "uninterrupted": {"test": uninterrupted["test"], "train_views": uninterrupted["train"]},
+        "wall_s": {"a": a["wall_s"], "b": b["wall_s"], "c": c_s},
+        "launches": {"a": a["launches"], "b": b["launches"], "eval": eval_launches,
+                     "render_cli": render_launches},
+    }, model
+
+
+def phase_train_cli_ckpt():
+    """The train CLI with `--checkpoint_every 10 --profile_steps 3
+    --test_iterations 20 30` on a seeded Blender scene with a held-out view,
+    then the same command resumed from its rolling checkpoint to 40, then one
+    run of the supervisor (`cli.train_supervised`) to its end; counts are
+    reset just before each in-process run and read just after. Checks: the
+    trace names the blend kernels, the resumed run prints its test PSNR,
+    the supervisor completes with a rolling checkpoint at its last
+    iteration."""
+    from gsplat_tpu_torch.cli import train as train_cli
+    from gsplat_tpu_torch.convert import read_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        src, _ = write_blender_scene(Path(tmp), size=CLI["size"], n=1000, test_views=1)
+        model = Path(tmp) / "trained"
+        base = ["-s", str(src), "-m", str(model), "--eval", "--densify_from_iter", "5",
+                "--densification_interval", "10", "--densify_until_iter", str(CLI_ITERS),
+                "--densify_grad_threshold", "1e-7", "--device", DEVICE, "--quiet",
+                "--disable_viewer"]
+        renders = 1 + EVAL_TRAIN_VIEWS  # per sweep: the test view and five train views
+        out, launches = {}, {}
+        for name, extra, iters, sweeps in (
+                ("first", ["--iterations", str(CLI_ITERS), "--checkpoint_every", "10",
+                           "--profile_steps", "3", "--test_iterations", "20", str(CLI_ITERS)],
+                 CLI_ITERS, 2),
+                ("resumed", ["--iterations", "40", "--test_iterations", "40",
+                             "--start_checkpoint", str(model / "rolling_chkpnt.pkl")], 10, 1)):
+            buf = io.StringIO()
+            reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc_ = train_cli.main(base + extra)
+            out[name] = {"s": time.perf_counter() - t, "stdout_tail": buf.getvalue()[-400:]}
+            launches[name] = read_counts()
+            check(rc_ == 0, f"{name} train CLI run returned non-zero")
+            check_launches(launches[name], eval_counts(iters, renders * sweeps),
+                           f"{name} train CLI run")
+        trace = model / "profile" / "trace.json"
+        check(trace.exists(), "--profile_steps wrote no trace")
+        text = trace.read_text()
+        check("blend_fwd_kernel" in text and "blend_bwd_kernel" in text,
+              "the profile trace names no blend kernel")
+        resumed = out["resumed"]["stdout_tail"]
+        check(f"at iteration {CLI_ITERS}" in buf.getvalue() and "iter 40: test PSNR" in resumed,
+              f"the resumed run printed no resume or test PSNR: {resumed!r}")
+
+        sup_model = Path(tmp) / "supervised"
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "gsplat_tpu_torch.cli.train_supervised", "--checkpoint_every",
+             "10", "--", *base[:2], "-m", str(sup_model), *base[4:], "--iterations", "20",
+             "--test_iterations", "20"],
+            capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+        sup_s = time.perf_counter() - t
+        log = (sup_model / "train_supervised.log").read_text()
+        check(res.returncode == 0 and "training completed" in res.stdout,
+              f"the supervisor failed: rc {res.returncode}, {res.stdout[-400:]} {log[-800:]}")
+        check(read_checkpoint(str(sup_model / "rolling_chkpnt.pkl"))["iteration"] == 20
+              and "iter 20: test PSNR" in log, f"supervised run: {log[-800:]}")
+        return {"runs": out, "trace_mb": trace.stat().st_size / 2**20, "supervised_s": sup_s,
+                "supervised_log_tail": log[-300:], "launches": launches}
+
+
+def vgg16_weights(path: Path, seed=0):
+    """Seeded synthetic LPIPS weights at VGG16's full widths (He-scaled
+    convolutions, positive heads) in the `.npz` format `eval/lpips.py`
+    reads; returns the weight count."""
+    from gsplat_tpu_torch.eval.lpips import VGG16_BLOCKS
+
+    rng = np.random.default_rng(seed)
+    blob, cin, i = {}, 3, 0
+    for cout, n_convs in VGG16_BLOCKS:
+        for _ in range(n_convs):
+            blob[f"conv_{i}_w"] = rng.normal(0, np.sqrt(2.0 / (cin * 9)),
+                                             (cout, cin, 3, 3)).astype(np.float32)
+            blob[f"conv_{i}_b"] = rng.normal(0, 0.01, (cout,)).astype(np.float32)
+            cin, i = cout, i + 1
+    for k, (cout, _) in enumerate(VGG16_BLOCKS):
+        blob[f"lin_{k}_w"] = np.abs(rng.normal(0, 1.0 / cout, (cout,))).astype(np.float32)
+    np.savez(path, **blob)
+    return sum(v.size for v in blob.values())
+
+
+def phase_metrics(model: Path, device):
+    """`cli.metrics` on the render CLI's PNGs of the resumed model (2 test
+    views at 1080p) with seeded synthetic VGG16 weights, on the card; then
+    on a 270x480 crop of the same pairs on the card and with `--device cpu`:
+    SSIM, PSNR and LPIPS, mean and per view, within relative 1e-5. LPIPS(x,
+    x) < 1e-6 on the card; LPIPS and SSIM + PSNR timed per 1080p pair."""
+    import os
+
+    from PIL import Image
+
+    from gsplat_tpu_torch.cli import metrics as metrics_cli
+    from gsplat_tpu_torch.eval import lpips as lp
+    from gsplat_tpu_torch.train.losses import psnr, ssim
+
+    method = f"ours_{CKPT['iterations_b']}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        weights = Path(tmp) / "lpips_vgg16.npz"
+        n_weights = vgg16_weights(weights)
+        saved = os.environ.get("GSPLAT_LPIPS_WEIGHTS")
+        os.environ["GSPLAT_LPIPS_WEIGHTS"] = str(weights)
+        lp._load_weights.cache_clear()
+        try:
+            t = time.perf_counter()
+            check(metrics_cli.main(["-m", str(model), "--device", DEVICE]) == 0,
+                  "metrics CLI returned non-zero")
+            full_s = time.perf_counter() - t
+            results = json.loads((model / "results.json").read_text())[method]
+            check(all(np.isfinite(results[k]) for k in ("SSIM", "PSNR", "LPIPS"))
+                  and results["LPIPS"] > 0, f"metrics on the card: {results}")
+
+            pair = sorted((model / "test" / method / "renders").iterdir())[0]
+            r, g = (torch.from_numpy(np.asarray(Image.open(d / pair.name).convert("RGB"),
+                                                np.float32) / 255.0).to(device)
+                    for d in (pair.parent, model / "test" / method / "gt"))
+            same = float(lp.lpips(r, r))
+            check(abs(same) < 1e-6, f"LPIPS(x, x) = {same}")
+            lpips_ms = cuda_time(lambda: lp.lpips(r, g), 3)
+            ssim_psnr_ms = cuda_time(lambda: (ssim(r, g), psnr(r, g)), 10)
+
+            crop = Path(tmp) / "crop"
+            h, w = LPIPS_CROP
+            y0, x0 = (FULL["height"] - h) // 2, (FULL["width"] - w) // 2
+            for sub in ("renders", "gt"):
+                (crop / "test" / method / sub).mkdir(parents=True)
+                for p in sorted((model / "test" / method / sub).iterdir()):
+                    Image.fromarray(np.asarray(Image.open(p))[y0:y0 + h, x0:x0 + w]).save(
+                        crop / "test" / method / sub / p.name)
+            got = {}
+            for dev in (DEVICE, "cpu"):
+                t = time.perf_counter()
+                check(metrics_cli.main(["-m", str(crop), "--device", dev]) == 0,
+                      f"metrics CLI on {dev} returned non-zero")
+                got[dev] = {"s": time.perf_counter() - t,
+                            "results": json.loads((crop / "results.json").read_text())[method],
+                            "per_view": json.loads((crop / "per_view.json").read_text())[method]}
+        finally:
+            if saved is None:
+                os.environ.pop("GSPLAT_LPIPS_WEIGHTS", None)
+            else:
+                os.environ["GSPLAT_LPIPS_WEIGHTS"] = saved
+            lp._load_weights.cache_clear()
+    rel = {}
+    for k in ("SSIM", "PSNR", "LPIPS"):
+        pairs = [(got[DEVICE]["results"][k], got["cpu"]["results"][k])] + [
+            (v, got["cpu"]["per_view"][k][n]) for n, v in got[DEVICE]["per_view"][k].items()]
+        rel[k] = max(abs(a - b) / abs(b) for a, b in pairs)
+    check(all(v <= METRIC_REL for v in rel.values()),
+          f"metrics on the card against the CPU, relative: {rel}")
+    return {"weights": n_weights, "views": 2, "results_1080p": results, "full_s": full_s,
+            "lpips_self": same, "lpips_ms_per_pair": lpips_ms,
+            "ssim_psnr_ms_per_pair": ssim_psnr_ms, "crop": list(LPIPS_CROP),
+            "crop_results": {d: v["results"] for d, v in got.items()},
+            "crop_s": {d: v["s"] for d, v in got.items()}, "card_vs_cpu_rel": rel}
+
+
+class _Bytes:
+    """A connection that hands out the bytes it holds, for decoding a
+    request as the bridge does."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def recv(self, n):
+        out, self.data = self.data[:n], self.data[n:]
+        return out
+
+
+def viewer_message(camera, scaling_modifier):
+    """The SIBR client's request for the port's `camera` (glm-convention
+    row-major matrices with the Y/Z column flips `NetworkGUI.receive`
+    undoes)."""
+    wv = camera.world_view.cpu().numpy()
+    vm, vp = wv.T.copy(), camera.full_proj.cpu().numpy().T.copy()
+    vm[:, 1] *= -1
+    vm[:, 2] *= -1
+    vp[:, 1] *= -1
+    return {"resolution_x": camera.width, "resolution_y": camera.height, "train": True,
+            "fov_x": float(2 * np.arctan(float(camera.tan_fovx))),
+            "fov_y": float(2 * np.arctan(float(camera.tan_fovy))), "z_near": 0.01,
+            "z_far": 100.0, "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+            "scaling_modifier": scaling_modifier,
+            "view_matrix": [float(x) for x in vm.reshape(-1)],
+            "view_projection_matrix": [float(x) for x in vp.reshape(-1)]}
+
+
+def phase_viewer(device):
+    """`NetworkGUI(port=0)` serves a loopback client three 1920x1080
+    requests of the flagship scene (scaling modifier 1.0, 0.5, 1.0), counts
+    reset just before and read just after: the bytes returned equal
+    `(clip(render) * 255).astype(uint8)` of the port's `render()` on the
+    card for the decoded camera, exactly; K1' (expand, float32 pack) and K2'
+    once per request."""
+    import socket
+    import threading
+
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+    from gsplat_tpu_torch.viewer.network_gui import NetworkGUI, camera_from_request
+
+    params, alive, camera = tiny_scene(**FULL, device=device)
+    settings = make_render_settings(sh_degree=3)
+    bg = [0.0, 0.0, 0.0]
+    gui = NetworkGUI(port=0)
+    port = gui.listener.getsockname()[1]
+    mods = (1.0, 0.5, 1.0)
+    got, rtt_ms = [], []
+    reset_counts()
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            for sm in mods:
+                payload = json.dumps(viewer_message(camera, sm)).encode("utf-8")
+                done = threading.Event()
+
+                def client(payload=payload, done=done):
+                    t0 = time.perf_counter()
+                    s.sendall(len(payload).to_bytes(4, "little") + payload)
+                    want = camera.width * camera.height * 3
+                    buf = bytearray()
+                    while len(buf) < want:
+                        buf += s.recv(want - len(buf))
+                    n = int.from_bytes(s.recv(4), "little")
+                    verify = s.recv(n).decode("ascii")
+                    rtt_ms.append((time.perf_counter() - t0) * 1e3)
+                    got.append((bytes(buf), verify))
+                    done.set()
+
+                th = threading.Thread(target=client)
+                th.start()
+                # one pass accepts the connection (first request) and serves
+                # one request; a second would wait for a request never sent
+                gui.pump(params, alive, settings, bg, "chip-smoke-src", 1, 10)
+                th.join(timeout=60)
+                check(done.is_set() and not th.is_alive(), f"viewer request {sm} not answered")
+    finally:
+        gui.close()
+    launches = read_counts()
+    check_counts(launches, RENDER_KERNELS, len(mods), f"viewer, {len(mods)} requests")
+    for sm, (data, verify) in zip(mods, got):
+        dec = NetworkGUI.__new__(NetworkGUI)
+        payload = json.dumps(viewer_message(camera, sm)).encode("utf-8")
+        dec.conn = _Bytes(len(payload).to_bytes(4, "little") + payload)
+        cam, _, _, smod = dec.receive()
+        with torch.no_grad():
+            img = render(camera_from_request(cam, device), params, alive,
+                         dataclasses.replace(settings, scale_modifier=smod), bg, device=DEVICE)["render"]
+        want = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8).tobytes()
+        check(verify == "chip-smoke-src" and data == want,
+              f"viewer bytes at scaling modifier {sm} differ from the render")
+    check(got[0][0] != got[1][0], "the scaling modifier changed nothing")
+    return {"size": f"{camera.width}x{camera.height}", "scaling_modifiers": list(mods),
+            "round_trip_ms": rtt_ms, "launches": launches}
 
 
 def phase_bench():
@@ -2506,6 +3105,19 @@ def main() -> int:
     t = time.perf_counter()
     colmap_summary = phase_colmap_train(device)
     emit(phase="colmap_train", **colmap_summary, seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t = time.perf_counter()
+        ckpt_summary, ckpt_model = phase_checkpoint_resume(device, Path(tmp))
+        emit(phase="checkpoint_resume", **ckpt_summary, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit(phase="metrics", **phase_metrics(ckpt_model, device),
+             seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    cli_ckpt_summary = phase_train_cli_ckpt()
+    emit(phase="train_cli_ckpt", **cli_ckpt_summary, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    viewer_summary = phase_viewer(device)
+    emit(phase="viewer", **viewer_summary, seconds=time.perf_counter() - t)
     t = time.perf_counter()
     bench_summary = phase_bench()
     emit(phase="bench", **bench_summary, seconds=time.perf_counter() - t)
@@ -2534,6 +3146,12 @@ def main() -> int:
                                    "bf16_render": bf16_summary["launches"],
                                    "probe": probe_launches,
                                    "colmap_train": colmap_summary["launches"],
+                                   "checkpoint_run_a": ckpt_summary["launches"]["a"],
+                                   "checkpoint_run_b": ckpt_summary["launches"]["b"],
+                                   "evaluate_test": ckpt_summary["launches"]["eval"],
+                                   "train_cli_ckpt": cli_ckpt_summary["launches"]["first"],
+                                   "train_cli_resumed": cli_ckpt_summary["launches"]["resumed"],
+                                   "viewer": viewer_summary["launches"],
                                    "bench": bench_summary["launches"],
                                    "entry": entry_summary["launches"]})
     for r in rows:

@@ -6,14 +6,19 @@ Every flag of `train.py` is accepted (the config dataclasses reflect into
 flags as there), plus `--device` (default `cuda`). The model directory gets
 `cfg_args`, `input.ply`, `cameras.json` and a snapshot at each
 `--save_iterations` entry and at the last iteration, in the layout that
-`python -m gsplat_tpu_torch.cli.render` and the JAX package read.
+`python -m gsplat_tpu_torch.cli.render` and the JAX package read, plus
+tensorboard events, `chkpnt<it>.pkl` at each `--checkpoint_iterations`
+entry and `rolling_chkpnt.pkl` every `--checkpoint_every` iterations.
+`--start_checkpoint` resumes from a checkpoint of either package.
 
-Not in this slice: `--mesh`, checkpoints (`--checkpoint_iterations`,
-`--start_checkpoint`, `--checkpoint_every`) and `--profile_steps` are
-refused; the viewer (`--ip`, `--port`) and the test evaluations
-(`--test_iterations`) are skipped with a message. `--debug_from` checks
-the loss every step from that iteration on; `--detect_anomaly` turns on
-autograd's anomaly detection.
+`--test_iterations` evaluates the test views (and five train views) at
+those iterations; the test PSNR and L1 are printed at the end.
+`--profile_steps N` writes a `torch.profiler` chrome trace of iterations 3
+to 2+N to `<model>/profile/trace.json`. The SIBR viewer is served on
+`--ip`/`--port` unless `--disable_viewer` is given; a port that cannot be
+bound disables it and training goes on. `--debug_from` checks the loss
+every step from that iteration on; `--detect_anomaly` turns on autograd's
+anomaly detection. `--mesh` is refused until the multi-device slice.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0,
                         help="RNG seed (camera pick order, densify split sampling)")
     parser.add_argument("--log_every", type=int, default=10)
-    parser.add_argument("--profile_steps", type=int, default=0)
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="write a torch.profiler chrome trace of N steps to <model>/profile")
     parser.add_argument("--disable_viewer", action="store_true")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
@@ -65,47 +71,93 @@ def main(argv=None):
     pipe_cfg = extract(PipelineConfig, args)
     if not model_cfg.source_path:
         parser.error("-s/--source_path is required")
-    if args.profile_steps > 0:
-        parser.error("--profile_steps is not ported yet (the checkpoint-and-eval slice)")
     if not model_cfg.model_path:
         model_cfg = dataclasses.replace(
             model_cfg, model_path=os.path.join("./output", str(uuid.uuid4())[:10]))
     print(f"Optimizing {model_cfg.model_path}")
     os.makedirs(model_cfg.model_path, exist_ok=True)
     save_cfg_args(model_cfg.model_path, model_cfg)
-    if not args.disable_viewer:
-        print("[viewer] the viewer bridge is not ported yet: training without it",
-              file=sys.stderr)
 
     import torch
 
     from gsplat_tpu_torch.train.loop import train
+    from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
 
-    on_iteration = None
+    gui_server = None
+    if not args.disable_viewer:
+        try:
+            gui_server = NetworkGUI(args.ip, args.port)
+        except OSError as e:  # the viewer never blocks training
+            print(f"[viewer] disabled: {e}", file=sys.stderr)
+    hooks = [gui_server.make_training_hook(model_cfg, pipe_cfg)] if gui_server else []
+    if args.profile_steps > 0:
+        hooks.append(_profile_hook(os.path.join(model_cfg.model_path, "profile"),
+                                   args.profile_steps, args.iterations, args.device))
     if args.debug_from >= 0:
-        def on_iteration(iteration, state, metrics):
+        def debug_hook(iteration, state, metrics):
             if iteration >= args.debug_from:
                 loss = float(metrics["loss"])
                 if not math.isfinite(loss):
                     raise FloatingPointError(
                         f"[debug] non-finite loss at iteration {iteration}: {loss}")
 
-    with torch.autograd.set_detect_anomaly(args.detect_anomaly):
-        train(
-            model_cfg, opt_cfg, pipe_cfg,
-            testing_iterations=tuple(args.test_iterations),
-            saving_iterations=tuple(args.save_iterations),
-            checkpoint_iterations=tuple(args.checkpoint_iterations),
-            start_checkpoint=args.start_checkpoint,
-            quiet=args.quiet,
-            log_every=args.log_every,
-            on_iteration=on_iteration,
-            checkpoint_every=args.checkpoint_every,
-            seed=args.seed,
-            device=args.device,
-        )
+        hooks.append(debug_hook)
+
+    def on_iteration(iteration, state, metrics):
+        for hook in hooks:
+            hook(iteration, state, metrics)
+
+    try:
+        with torch.autograd.set_detect_anomaly(args.detect_anomaly):
+            _, _, results = train(
+                model_cfg, opt_cfg, pipe_cfg,
+                testing_iterations=tuple(args.test_iterations),
+                saving_iterations=tuple(args.save_iterations),
+                checkpoint_iterations=tuple(args.checkpoint_iterations),
+                start_checkpoint=args.start_checkpoint,
+                quiet=args.quiet,
+                log_every=args.log_every,
+                on_iteration=on_iteration if hooks else None,
+                checkpoint_every=args.checkpoint_every,
+                seed=args.seed,
+                device=args.device,
+            )
+    finally:
+        if gui_server:
+            gui_server.close()
     print("\nTraining complete.")
+    for it, ev in results.get("test", {}).items():
+        print(f"  iter {it}: test PSNR {ev['psnr']:.2f}  L1 {ev['l1']:.5f}")
     return 0
+
+
+def _profile_hook(out_dir, steps, last_iteration, device):
+    """An `on_iteration` hook that profiles iterations 3 to 2+`steps` (from
+    the end of iteration 2 to the end of 2+`steps`, or of the run) with
+    `torch.profiler` and writes the chrome trace to `out_dir/trace.json`."""
+    import torch
+    from torch.profiler import profile
+
+    from gsplat_tpu_torch.profiling import activities
+
+    prof = None
+
+    def hook(iteration, state, metrics):
+        nonlocal prof
+        if iteration == 2 and prof is None:
+            prof = profile(activities=activities(device))
+            prof.start()
+        elif prof is not None and (iteration >= 2 + steps or iteration == last_iteration):
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            prof.stop()
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            prof = None
+            print(f"[profile] trace written to {path}")
+
+    return hook
 
 
 if __name__ == "__main__":

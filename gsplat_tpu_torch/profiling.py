@@ -33,13 +33,22 @@ def interval_union(spans) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def activities(device):
+    """The profiler activities for work on `device`: the host's ops, and
+    the card's kernels, copies and sets when it is a CUDA device."""
+    from torch.profiler import ProfilerActivity
+
+    cuda = torch.device(device).type == "cuda"
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+
 def profile_calls(fn, calls: int):
     """Run `fn()` `calls` times under `torch.profiler` (CPU and CUDA
     activity), ending in a synchronize; returns the finished profile."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities("cuda")) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()

@@ -5,31 +5,44 @@ step (`train/step.py`); this loop supplies what stays on the host: camera
 sampling without replacement from `random.Random(seed)`, the xyz, exposure
 and depth-weight schedules, the SH-degree ramp, the densify and
 opacity-reset cadence, the gaussian-capacity controller with its resize
-(`capacity.py`, `train/resize.py`), the per-view pixel cache, snapshot
-saving and the progress log.
+(`capacity.py`, `train/resize.py`), the per-view pixel cache, the
+`testing_iterations` evaluation sweeps, tensorboard, snapshot saving,
+checkpoints (`chkpnt<it>.pkl`, the rolling `rolling_chkpnt.pkl` written on
+a worker thread, and resume from either package's checkpoint) and the
+progress log.
 
-Not in this slice, each refused or skipped with a message: `--mesh`
-(multi-device), checkpoints (`checkpoint_iterations`, `start_checkpoint`,
-`checkpoint_every`), tensorboard and the `testing_iterations` evaluation
-sweeps. The instance buffer is sized per frame, so there is no
-instance-capacity controller to port.
+`--mesh` (multi-device) is refused until its slice is ported. The instance
+buffer is sized per frame, so there is no instance-capacity controller to
+port.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import random
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from gsplat_tpu_torch.capacity import CapacityController
 from gsplat_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from gsplat_tpu_torch.convert import (
+    train_state_from_jax_checkpoint,
+    train_state_to_numpy,
+    train_state_tree,
+    tree_to_numpy,
+)
 from gsplat_tpu_torch.core.types import make_render_settings
 from gsplat_tpu_torch.data.scene import Scene
 from gsplat_tpu_torch.device import resolve_device
 from gsplat_tpu_torch.model import init_from_pcd
+from gsplat_tpu_torch.render import render
+from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.resize import resize_train_state
 from gsplat_tpu_torch.train.step import (
     init_train_state,
@@ -40,14 +53,76 @@ from gsplat_tpu_torch.train.step import (
 from gsplat_tpu_torch.utils.general import expon_lr_func
 
 
-def _refuse_unported(pipe, checkpoint_iterations, start_checkpoint, checkpoint_every):
-    if pipe.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-device training is not ported yet (the multi-device slice)")
-    if checkpoint_iterations or start_checkpoint or checkpoint_every:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (the checkpoint-and-eval slice); "
-            "snapshots at saving_iterations are")
+def write_checkpoint(path: str, host_state: dict, iteration: int):
+    """Pickle {"state": host_state, "iteration": iteration} to `path`
+    atomically (a temporary name, then `os.replace`), so a crash mid-write
+    never corrupts the file a supervisor would resume from."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"state": host_state, "iteration": int(iteration)}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, state, iteration: int):
+    """The state as a plain dict of numpy arrays (`convert.train_state_to_numpy`:
+    no class references, the generator's state included), written now."""
+    write_checkpoint(path, train_state_to_numpy(state), iteration)
+
+
+def load_checkpoint(path: str, device=None):
+    """(state, iteration) from a checkpoint of either package on `device`
+    (`None` means `cuda`)."""
+    return train_state_from_jax_checkpoint(path, resolve_device(device))
+
+
+class CheckpointWriter:
+    """Rolling checkpoints on one worker thread, at most one write in flight
+    (a second submit waits for the first: skipping ahead beats a queue).
+
+    A submit keeps references to the state's tensors until the write ends
+    and copies the generator's state at once; the worker copies the tensors
+    to the host and pickles them. That is race-free because the train, densify, resize and
+    opacity-reset steps never write a tensor in place: each returns fresh
+    ones. On the card the worker copies on a side stream that first waits
+    for the work queued before the submit, so the train kernels queued after
+    it need not wait for the copy.
+    """
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        self._pending = None
+        self._stream = None
+
+    def submit(self, path: str, state, iteration: int):
+        self.flush()
+        tree = train_state_tree(state)
+        ready = None
+        dev = state.alive.device
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        self._pending = self._pool.submit(self._write, path, tree, iteration, dev, ready)
+
+    def _write(self, path, tree, iteration, dev, ready):
+        if ready is None:
+            host = tree_to_numpy(tree)
+        else:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device=dev)
+            self._stream.wait_event(ready)
+            with torch.cuda.stream(self._stream):
+                host = tree_to_numpy(tree)  # a copy to pageable memory: synchronous
+        write_checkpoint(path, host, iteration)
+
+    def flush(self):
+        """Wait for the write in flight, raising its exception if it failed."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self):
+        self._pool.shutdown(wait=True)
 
 
 # Device-memory budget of the pixel cache. A lego/garden-class scene fits
@@ -76,9 +151,20 @@ class PixelCache:
         self.device = device
         self.budget = budget
         self.entries = {}  # insertion order is recency order
+        self.eval_gt = {}  # ground truth of views only evaluated
 
     def nbytes(self) -> int:
         return sum(_nbytes(v) for v in self.entries.values() if isinstance(v, tuple))
+
+    def gt(self, cam):
+        """`cam`'s ground truth on the device for an evaluation: the cached
+        train entry's when there is one (uploaded once either way)."""
+        key = (id(cam.image), cam.uid)
+        if key in self.entries:
+            return self.entries[key][0]
+        if key not in self.eval_gt:
+            self.eval_gt[key] = torch.as_tensor(cam.image, device=self.device)
+        return self.eval_gt[key]
 
     def get(self, cam):
         """(gt, alpha mask, inverse depth, depth mask) of `cam` on the device."""
@@ -113,6 +199,58 @@ class PixelCache:
         return entry
 
 
+def evaluate_test(state, cameras, settings, bg, pixels: PixelCache):
+    """Mean L1 and PSNR of the clipped renders of `cameras` against their
+    ground truth (`train.py:214-252` training_report), or None without
+    cameras. `pixels` supplies each view's ground truth on the device; the
+    per-view values stay there until one copy to the host at the end."""
+    if not cameras:
+        return None
+    params = SimpleNamespace(**state.params)
+    l1s, psnrs = [], []
+    with torch.no_grad():
+        for cam in cameras:
+            gt = pixels.gt(cam)
+            img = torch.clamp(render(cam.camera, params, state.alive, settings, bg,
+                                     device=state.alive.device)["render"], 0.0, 1.0)
+            l1s.append(losses.l1_loss(img, gt))
+            psnrs.append(losses.psnr(img, gt))
+        vals = torch.stack([torch.stack(l1s), torch.stack(psnrs)]).cpu().numpy()
+    return {"l1": float(np.mean(vals[0])), "psnr": float(np.mean(vals[1]))}
+
+
+def _report(results, tb, iteration, state, settings, bg, pixels, test_cams, train_cams):
+    """The `testing_iterations` sweep: the held-out views, then the train
+    views 5, 10, ..., 25 modulo their count (`train.py:220`), into
+    `results["test"]` and `results["train"]` and tensorboard."""
+    sel = [train_cams[i % len(train_cams)] for i in range(5, 30, 5)]
+    for split, cams in (("test", test_cams), ("train", sel)):
+        ev = evaluate_test(state, cams, settings, bg, pixels)
+        if ev is None:
+            continue
+        results.setdefault(split, {})[iteration] = ev
+        print(f"\n[ITER {iteration}] {split}: L1 {ev['l1']:.5f} PSNR {ev['psnr']:.2f}\n")
+        if tb is not None:
+            tb.add_scalar(f"{split}/loss_viewpoint - l1_loss", ev["l1"], iteration)
+            tb.add_scalar(f"{split}/loss_viewpoint - psnr", ev["psnr"], iteration)
+    if tb is not None:
+        # scene/opacity_histogram (`train.py:248-250`); total_points goes out
+        # on every log iteration
+        op = torch.sigmoid(state.params["opacity"][state.alive, 0])
+        tb.add_histogram("scene/opacity_histogram", op.cpu().numpy(), iteration)
+
+
+def _summary_writer(model_path):
+    if not model_path:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard unavailable — progress logs only", file=sys.stderr)
+        return None
+    return SummaryWriter(model_path)
+
+
 def train(
     model_cfg: ModelConfig,
     opt: OptimizationConfig,
@@ -129,8 +267,15 @@ def train(
     device=None,
 ):
     """Run the optimisation on `device` (`None` means `cuda`); returns
-    (state, scene, results dict)."""
-    _refuse_unported(pipe, checkpoint_iterations, start_checkpoint, checkpoint_every)
+    (state, scene, results dict).
+
+    `start_checkpoint` resumes from a checkpoint of either package at its
+    iteration + 1, with the SH degree the ramp would have reached; the camera
+    order restarts from `seed`, as in the JAX loop.
+    """
+    if pipe.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-device training is not ported yet (the multi-device slice)")
     dev = resolve_device(device)
     scene = Scene(
         model_cfg.source_path,
@@ -144,13 +289,18 @@ def train(
         device=dev,
     )
     train_cams = scene.get_train_cameras()
-    params, alive = init_from_pcd(
-        scene.info.points, scene.info.colors, max_sh_degree=model_cfg.sh_degree,
-        capacity=pipe.capacity or None, device=dev,
-    )
-    state = init_train_state(params, alive, num_images=len(train_cams), seed=seed)
+    first_iter = 0
+    if start_checkpoint:
+        state, first_iter = load_checkpoint(start_checkpoint, dev)
+        print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
+    else:
+        params, alive = init_from_pcd(
+            scene.info.points, scene.info.colors, max_sh_degree=model_cfg.sh_degree,
+            capacity=pipe.capacity or None, device=dev,
+        )
+        state = init_train_state(params, alive, num_images=len(train_cams), seed=seed)
     if not quiet:
-        print(f"[init] {int(alive.sum())} gaussians in {state.capacity} rows on {dev}")
+        print(f"[init] {int(state.alive.sum())} gaussians in {state.capacity} rows on {dev}")
 
     extent = float(scene.cameras_extent)
     xyz_sched = expon_lr_func(
@@ -169,27 +319,29 @@ def train(
     bg_color = torch.full((3,), 1.0 if model_cfg.white_background else 0.0, device=dev)
     use_exposure = model_cfg.train_test_exp
 
+    def settings_for(active_sh):
+        return make_render_settings(
+            sh_degree=active_sh, antialiasing=pipe.antialiasing,
+            blend_mode=pipe.blend_mode, packet_dtype=pipe.packet_dtype,
+        )
+
     step_cache = {}
 
     def step_fn(active_sh):
         if active_sh not in step_cache:
-            settings = make_render_settings(
-                sh_degree=active_sh, antialiasing=pipe.antialiasing,
-                blend_mode=pipe.blend_mode, packet_dtype=pipe.packet_dtype,
-            )
-            step_cache[active_sh] = make_train_step(opt, settings, use_exposure=use_exposure)
+            step_cache[active_sh] = make_train_step(opt, settings_for(active_sh),
+                                                    use_exposure=use_exposure)
         return step_cache[active_sh]
 
     densify_step = make_densify_step(opt)
-    if scene.model_path and not quiet:
-        print("tensorboard logging is not ported yet (the checkpoint-and-eval slice): "
-              "progress logs only", file=sys.stderr)
+    tb = _summary_writer(scene.model_path)
 
     rng = random.Random(seed)
     np_rng = np.random.default_rng(seed)
     # gaussian-axis controller, as the JAX loop sets it: observed once per
     # densify round, so a 10-observation window spans ~1000 iterations;
-    # pipe.capacity > 0 pins the capacity (no controller)
+    # pipe.capacity > 0 pins the capacity (no controller). Built after a
+    # resume, at the checkpoint's capacity.
     gauss_ctl = (
         CapacityController(
             state.capacity, window=10, event_window=3, floor=4096,
@@ -199,85 +351,112 @@ def train(
         else None
     )
     pixels = PixelCache(dev)
+    ckpt_writer = CheckpointWriter()
     viewpoint_stack = []
     ema_loss = ema_depth = 0.0
     results = {"test": {}, "loss": {}}
-    eval_warned = False
-    active_sh = 0
+    # SH degree ramps once per 1000 iterations; on resume, catch up to where
+    # the ramp would be (the reference restores active_sh_degree from the
+    # checkpoint tuple, `gaussian_model.py:76,89`)
+    active_sh = min(first_iter // 1000, model_cfg.sh_degree)
     metrics = None
-    t0 = time.time()
+    t0 = t_iter = time.time()
+    try:
+        for iteration in range(first_iter + 1, opt.iterations + 1):
+            # SH degree ramp every 1000 iterations (`train.py:93-95`)
+            if iteration % 1000 == 0 and active_sh < model_cfg.sh_degree:
+                active_sh += 1
 
-    for iteration in range(1, opt.iterations + 1):
-        # SH degree ramp every 1000 iterations (`train.py:93-95`)
-        if iteration % 1000 == 0 and active_sh < model_cfg.sh_degree:
-            active_sh += 1
+            if not viewpoint_stack:
+                viewpoint_stack = list(range(len(train_cams)))
+            cam = train_cams[viewpoint_stack.pop(rng.randrange(len(viewpoint_stack)))]
 
-        if not viewpoint_stack:
-            viewpoint_stack = list(range(len(train_cams)))
-        cam = train_cams[viewpoint_stack.pop(rng.randrange(len(viewpoint_stack)))]
+            gt, mask, invd, dmask = pixels.get(cam)
+            bg = (torch.as_tensor(np_rng.random(3), dtype=torch.float32, device=dev)
+                  if opt.random_background else bg_color)
+            depth_w = depth_sched(iteration) if cam.depth_reliable else 0.0
 
-        gt, mask, invd, dmask = pixels.get(cam)
-        bg = (torch.as_tensor(np_rng.random(3), dtype=torch.float32, device=dev)
-              if opt.random_background else bg_color)
-        depth_w = depth_sched(iteration) if cam.depth_reliable else 0.0
+            state, metrics = step_fn(active_sh)(
+                state, cam.camera, gt, mask, invd, dmask, bg,
+                xyz_sched(iteration), exp_sched(iteration), depth_w, cam.uid,
+            )
 
-        state, metrics = step_fn(active_sh)(
-            state, cam.camera, gt, mask, invd, dmask, bg,
-            xyz_sched(iteration), exp_sched(iteration), depth_w, cam.uid,
-        )
+            # evaluate before the densify/reset block, as the reference's
+            # training_report (`train.py:158` precedes `:163-174`): after an
+            # opacity reset the render would be transparent
+            if iteration in testing_iterations:
+                _report(results, tb, iteration, state, settings_for(active_sh), bg_color,
+                        pixels, scene.get_test_cameras(), train_cams)
 
-        if iteration in testing_iterations and not eval_warned:
-            print(f"[ITER {iteration}] test evaluation is not ported yet (the "
-                  "checkpoint-and-eval slice): skipped", file=sys.stderr)
-            eval_warned = True
+            # densification cadence (`train.py:163-174`)
+            if iteration < opt.densify_until_iter:
+                if (iteration > opt.densify_from_iter
+                        and iteration % opt.densification_interval == 0):
+                    size_threshold = 20 if iteration > opt.opacity_reset_interval else 0
+                    state, dinfo = densify_step(state, extent, size_threshold)
+                    n_alive = dinfo["n_alive"]
+                    if gauss_ctl is not None:
+                        if dinfo["n_pruned"] * 3 >= n_alive:
+                            # mass prune (opacity-reset aftermath):
+                            # re-evaluate the capacity on a short window
+                            gauss_ctl.notify_structural_change()
+                        new_gcap = gauss_ctl.update(n_alive, dinfo["n_dropped"])
+                        if new_gcap is not None:
+                            state = resize_train_state(state, new_gcap)
+                            print(f"[auto] it {iteration}: alive {n_alive} — "
+                                  f"gaussian capacity -> {new_gcap}")
+                    if not quiet and iteration % 1000 == 0:
+                        print(
+                            f"[densify {iteration}] alive={dinfo['n_alive']} "
+                            f"clone={dinfo['n_cloned']} split={dinfo['n_split']} "
+                            f"prune={dinfo['n_pruned']} dropped={dinfo['n_dropped']}"
+                        )
+                if iteration % opt.opacity_reset_interval == 0 or (
+                    model_cfg.white_background and iteration == opt.densify_from_iter
+                ):
+                    state = opacity_reset_step(state)
 
-        # densification cadence (`train.py:163-174`)
-        if iteration < opt.densify_until_iter:
-            if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
-                size_threshold = 20 if iteration > opt.opacity_reset_interval else 0
-                state, dinfo = densify_step(state, extent, size_threshold)
-                n_alive = dinfo["n_alive"]
-                if gauss_ctl is not None:
-                    if dinfo["n_pruned"] * 3 >= n_alive:
-                        # mass prune (opacity-reset aftermath): re-evaluate
-                        # the capacity on a short window
-                        gauss_ctl.notify_structural_change()
-                    new_gcap = gauss_ctl.update(n_alive, dinfo["n_dropped"])
-                    if new_gcap is not None:
-                        state = resize_train_state(state, new_gcap)
-                        print(f"[auto] it {iteration}: alive {n_alive} — "
-                              f"gaussian capacity -> {new_gcap}")
-                if not quiet and iteration % 1000 == 0:
+            # sync to the host only on log iterations
+            if iteration % max(log_every, 1) == 0:
+                loss = float(metrics["loss"])
+                results["loss"][iteration] = loss
+                ema_loss = 0.4 * loss + 0.6 * ema_loss
+                ema_depth = 0.4 * float(metrics["depth_l1"]) + 0.6 * ema_depth
+                n_alive = int(state.alive.sum())
+                if tb is not None:
+                    tb.add_scalar("train_loss_patches/l1_loss", float(metrics["l1"]), iteration)
+                    tb.add_scalar("train_loss_patches/total_loss", loss, iteration)
+                    tb.add_scalar("iter_time", (time.time() - t_iter) * 1000.0, iteration)
+                    tb.add_scalar("total_points", n_alive, iteration)
+                if not quiet:
                     print(
-                        f"[densify {iteration}] alive={dinfo['n_alive']} "
-                        f"clone={dinfo['n_cloned']} split={dinfo['n_split']} "
-                        f"prune={dinfo['n_pruned']} dropped={dinfo['n_dropped']}"
+                        f"it {iteration:6d}  loss {ema_loss:.5f}  depth {ema_depth:.5f}  "
+                        f"alive {n_alive}  vis {int(metrics['n_visible'])}  "
+                        f"({(time.time() - t0):.1f}s)",
+                        flush=True,
                     )
-            if iteration % opt.opacity_reset_interval == 0 or (
-                model_cfg.white_background and iteration == opt.densify_from_iter
-            ):
-                state = opacity_reset_step(state)
+            t_iter = time.time()
 
-        # sync to the host only on log iterations
-        if iteration % max(log_every, 1) == 0:
-            loss = float(metrics["loss"])
-            results["loss"][iteration] = loss
-            ema_loss = 0.4 * loss + 0.6 * ema_loss
-            ema_depth = 0.4 * float(metrics["depth_l1"]) + 0.6 * ema_depth
-            if not quiet:
-                print(
-                    f"it {iteration:6d}  loss {ema_loss:.5f}  depth {ema_depth:.5f}  "
-                    f"alive {int(state.alive.sum())}  vis {int(metrics['n_visible'])}  "
-                    f"({(time.time() - t0):.1f}s)",
-                    flush=True,
-                )
-
-        if iteration in saving_iterations and scene.model_path:
-            print(f"\n[ITER {iteration}] Saving Gaussians")
-            scene.save(iteration, state.params, state.alive, state.exposure,
-                       [c.image_name for c in train_cams])
-        if on_iteration is not None:
-            on_iteration(iteration, state, metrics)
+            if iteration in saving_iterations and scene.model_path:
+                print(f"\n[ITER {iteration}] Saving Gaussians")
+                scene.save(iteration, state.params, state.alive, state.exposure,
+                           [c.image_name for c in train_cams])
+            if iteration in checkpoint_iterations and scene.model_path:
+                print(f"\n[ITER {iteration}] Saving Checkpoint")
+                save_checkpoint(os.path.join(scene.model_path, f"chkpnt{iteration}.pkl"),
+                                state, iteration)
+            if checkpoint_every and iteration % checkpoint_every == 0 and scene.model_path:
+                # rolling checkpoint for stall or crash recovery, overwritten
+                # in place (`cli/train_supervised.py` resumes from it)
+                ckpt_writer.submit(os.path.join(scene.model_path, "rolling_chkpnt.pkl"),
+                                   state, iteration)
+            if on_iteration is not None:
+                on_iteration(iteration, state, metrics)
+        ckpt_writer.flush()
+    finally:
+        ckpt_writer.close()
+        if tb is not None:
+            tb.close()
 
     results["wall_s"] = time.time() - t0
     return state, scene, results

@@ -21,6 +21,17 @@ from gsplat_tpu_torch.data import ply as ply_io
 from gsplat_tpu_torch.io.snapshot import load_snapshot as t_load_snapshot
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's tests: the tier-1 run shares the
+    CPU between six test workers, and small ops that each start eight
+    threads there mostly wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def small_scene(mini_blender, tmp_path):
     """A copy of the fixture with its own 512-point cloud (the Blender
@@ -78,9 +89,7 @@ def test_train_loop_loss_falls_and_refuses_unported_options(small_scene, tmp_pat
     assert len(losses) == 12 and np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
     assert state.step == 12 and all(torch.isfinite(v).all() for v in state.params.values())
-    for kw, match in ((dict(checkpoint_iterations=(5,)), "checkpoint"),
-                      (dict(start_checkpoint="x.pkl"), "checkpoint")):
-        with pytest.raises(NotImplementedError, match=match):
-            train(cfg, opt, PipelineConfig(), quiet=True, device="cpu", **kw)
+    # checkpoints are ported (`tests/test_torch_checkpoint.py`); the
+    # multi-device path is not
     with pytest.raises(NotImplementedError, match="mesh"):
         train(cfg, opt, PipelineConfig(mesh="2x2"), quiet=True, device="cpu")
