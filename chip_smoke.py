@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """On-card smoke run of gsplat_tpu_torch: build, check and time the kernels,
-then drive the render and train paths, sorted and OIT, through their entry
-points.
+then drive the render and train paths, sorted and OIT, on one card and on
+meshes of ranks that share it, through their entry points.
 
     python3 chip_smoke.py
 
@@ -148,6 +148,32 @@ JSON line per phase:
    positive rates, device time per call at most the host's, the kernels
    each point launches; `entry`: `gsplat_tpu_torch.entry.entry()` once
    (K1' and K2' once each, a finite image);
+   `multi_device`: the flagship train state (1,048,576 gaussians in
+   2,097,152 rows, 1920x1080, hybrid) on meshes of ranks that share the
+   card over gloo (spawned processes; gloo copies each collective's CUDA
+   tensors through host memory, and the line says so): 2x2, 4x1 and 1x4
+   as 4 ranks, then 1x3 as 3 ranks through `sharded_train_step` on the
+   padded grid (68 tile rows, 3 bands of 23). Every rank renders and steps
+   on one card alone first; on each mesh the sharded render (full gather)
+   is within atol 1e-6 of that render with radii equal, the band
+   exchange's render equals it bit for bit, and one train step (the band
+   exchange where T > 1, as the loop steps) gives the loss within rtol
+   1e-5, params within atol 2e-5 and `grad_accum` within atol 1e-5 of the
+   single-device step (`tests/test_parallel.py`'s tolerances), with the
+   counts reset just before the step and read just after (K1' expand and
+   hybrid pack, K2', K3', K4' once each per rank); then 3 steps timed per
+   rank with each collective's calls, bytes and ms (a synchronize around
+   each; the ms include waiting for the other ranks); `nccl_1x1`: a
+   one-rank NCCL mesh (a spawned process) held to the same checks;
+   `dryrun_multichip`: `entry.dryrun_multichip(4)` and
+   `entry.dryrun_multihost(8, 2)` over gloo on the card (each loss within
+   relative 1e-5 of the single-device loss); `train_cli_mesh`: `torchrun
+   --nproc_per_node 2 -m gsplat_tpu_torch.cli.train --mesh 1x2
+   --dist_backend gloo` 30 iterations on the train CLI's scene (densify
+   forced early, `chkpnt30.pkl`), the render CLI under `--mesh 1x2` (3
+   views), then the checkpoint resumed on one card to 40 in-process,
+   counts reset around it (K1' expand and hybrid pack, K2', K3', K4' 10
+   times);
 20. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
    and P4' at float32 and bf16, (256, 128) and (512, 128) (2000
    iterations), each against its twin on the card (float32: within 1e-6 of
@@ -170,8 +196,11 @@ JSON line per phase:
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
    P3' and P4'; the COLMAP train path's, the bench's and the entry's counts
    beside them, and those of the checkpoint runs A and B, the direct
-   `evaluate_test`, the two train CLI runs of `train_cli_ckpt` and the
-   viewer. The render and train paths launch no probe kernel.
+   `evaluate_test`, the two train CLI runs of `train_cli_ckpt`, the
+   viewer, each mesh's checked step summed over its ranks
+   (`multi_device_<G>x<T>`), `nccl_1x1` and the mesh checkpoint's resumed
+   run (`train_cli_mesh_resumed`). The render and train paths launch no
+   probe kernel.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -1323,6 +1352,7 @@ def phase_cli():
 BWD_OPS_PER_BLENDED = 45
 TRAIN_CAPACITY = 2 * FULL["n"]  # dead-row padding as `init_from_pcd` pads
 CLI_ITERS = 30
+CLI_INIT_POINTS = 100_000  # the Blender reader's random init of the CLI scenes
 
 
 def pad_rows(params, alive, capacity):
@@ -1379,42 +1409,55 @@ class StageMarks:
         return self.events[a].elapsed_time(self.events[b])
 
 
-def phase_train(device, blend_mode="sorted"):
-    """The train path at full width: the flagship scene through
-    `make_train_step` in hybrid mode, with the sorted or the OIT blend; then
-    the stage split, the busy share, and the kernel rows at the train
-    frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
+def flagship_train_setup(device, settings, full=None, capacity=None):
+    """The train path's inputs: the flagship scene (`full`, default FULL)
+    with seeded noise on features_dc and opacity, padded with dead rows to
+    `capacity` (default TRAIN_CAPACITY), its initial state, the step's
+    arguments (target: the unperturbed scene's render) and the config."""
     from gsplat_tpu_torch.config import OptimizationConfig
     from gsplat_tpu_torch.convert import PARAM_FIELDS
-    from gsplat_tpu_torch.core.types import make_render_settings
-    from gsplat_tpu_torch.ops import binning as tb
-    from gsplat_tpu_torch.ops import rasterize_cuda as rc
-    from gsplat_tpu_torch.ops import reduce as rd
     from gsplat_tpu_torch.render import render
     from gsplat_tpu_torch.synthetic import tiny_scene
-    from gsplat_tpu_torch.train import losses
     from gsplat_tpu_torch.train import step as ts
 
-    t0 = time.perf_counter()
-    module, alive0, camera = tiny_scene(**FULL, device=device)
-    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid", blend_mode=blend_mode)
-    oit = blend_mode == "oit"
+    full = full or FULL
+    module, alive0, camera = tiny_scene(**full, device=device)
     bg = torch.zeros(3, device=device)
     with torch.no_grad():  # the target: the unperturbed scene's render
-        target = render(camera, module, alive0, settings, bg, device=DEVICE)["render"]
+        target = render(camera, module, alive0, settings, bg, device=device)["render"]
     params = {k: getattr(module, k).detach().clone() for k in PARAM_FIELDS}
     del module
     gen = torch.Generator(device=device).manual_seed(1)
     for k, sigma in (("features_dc", 0.3), ("opacity", 0.5)):
         params[k] += sigma * torch.randn(params[k].shape, generator=gen, device=device)
-    params, alive = pad_rows(params, alive0, TRAIN_CAPACITY)
+    params, alive = pad_rows(params, alive0, capacity or TRAIN_CAPACITY)
     state = ts.init_train_state(params, alive, num_images=1, seed=0)
     opt = OptimizationConfig()
-    step = ts.make_train_step(opt, settings)
-    h, w = FULL["height"], FULL["width"]
+    h, w = full["height"], full["width"]
     zeros = torch.zeros((h, w), device=device)
     args = (camera, target, torch.ones((h, w, 1), device=device), zeros, zeros, bg,
             opt.position_lr_init, opt.exposure_lr_init, 0.0, 0)
+    return state, args, opt
+
+
+def phase_train(device, blend_mode="sorted"):
+    """The train path at full width: the flagship scene through
+    `make_train_step` in hybrid mode, with the sorted or the OIT blend; then
+    the stage split, the busy share, and the kernel rows at the train
+    frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import reduce as rd
+    from gsplat_tpu_torch.train import losses
+    from gsplat_tpu_torch.train import step as ts
+
+    t0 = time.perf_counter()
+    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid", blend_mode=blend_mode)
+    oit = blend_mode == "oit"
+    state, args, opt = flagship_train_setup(device, settings)
+    alive = state.alive
+    step = ts.make_train_step(opt, settings)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -2627,6 +2670,249 @@ def phase_entry():
     return {"launches": launches, "image_mean": float(img.mean()), "image_std": float(img.std())}
 
 
+# the multi-device phases: meshes of ranks that share the one card over gloo
+# (NCCL refuses two ranks on one card), each held against the single-device
+# render and train step on the same card
+MESHES = ((2, 2), (4, 1), (1, 4))
+PADDED_MESH = (1, 3)  # 68 tile rows do not divide by 3: the padded grid
+MESH_TIMED = 3  # steps timed per mesh after the checked one
+MESH_RENDER_ATOL = 1e-6  # the JAX test's tolerances (tests/test_parallel.py)
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAMS_ATOL = 2e-5
+MESH_GRAD_ACCUM_ATOL = 1e-5
+
+
+def _mesh_rank(cfg, shapes, backend, sharded_step=False):
+    """One rank of a job on the card: the single-device render and step of
+    the flagship train state, then on each (G, T) mesh of `shapes` the
+    sharded render (full gather, and the band exchange, which must equal it
+    bit for bit) and one train step held against them, counts reset just
+    before the step and read just after (K1' expand and hybrid pack, K2',
+    K3', K4' once each), then MESH_TIMED steps timed with the collectives'
+    ms and bytes. The step exchanges rows as `train()` does by default (the
+    band exchange where the tile axis has bands). `sharded_step` runs
+    `sharding.sharded_train_step` and `sharded_render` (the full gather) in
+    place of the pipeline's functions."""
+    from types import SimpleNamespace
+
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.parallel import pipeline, sharding
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.train import step as ts
+
+    device = torch.device(cfg["device"])
+    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid")
+    state, args, opt = flagship_train_setup(device, settings, cfg["full"], cfg["capacity"])
+    camera, bg = args[0], args[5]
+    w, h = camera.width, camera.height
+    params = SimpleNamespace(**state.params)
+    with torch.no_grad():
+        ref = render(camera, params, state.alive, settings, bg, device=device)
+    ref_state, ref_metrics = ts.make_train_step(opt, settings)(state, *args)
+    ref_loss = float(ref_metrics["loss"])
+    out = []
+    for shape in shapes:
+        mesh = sharding.make_mesh(*shape, backend=backend, device=cfg["device"])
+        tag = f"{shape[0]}x{shape[1]} rank {mesh.rank} {mesh.coords}"
+        rows = sharding.param_spec(mesh, state.capacity)
+        lp, la = sharding.shard_params(params, state.alive, mesh)
+        if sharded_step:
+            render_fns = {"full": sharding.sharded_render(mesh, settings)}
+            step, place = sharding.sharded_train_step(mesh, opt, settings)
+        else:
+            render_fns = {name: pipeline.make_sharded_render(mesh, settings, w, h,
+                                                             exchange_capacity=exch)
+                          for name, exch in (("full", None), ("band", 1))}
+            # the step exchanges as the loop's default does: the band exchange
+            # where there are bands
+            step = pipeline.make_pipeline_train_step(
+                mesh, opt, settings, w, h, exchange_capacity=1 if shape[1] > 1 else None)
+
+            def place(st):
+                return sharding.place_train_state(mesh, st)
+        with torch.no_grad():
+            imgs = {name: fn(camera, lp, la, bg) for name, fn in render_fns.items()}
+        full = imgs["full"]
+        res = {"mesh": f"{shape[0]}x{shape[1]}", "rank": mesh.rank, "coords": mesh.coords,
+               "render_max_abs_err": float((full["render"] - ref["render"]).abs().max()),
+               "invdepth_max_abs_err": float((full["invdepth"] - ref["invdepth"]).abs().max()),
+               "radii_equal": bool(torch.equal(full["radii"], ref["radii"][rows.start:rows.stop])),
+               "num_instances": full["num_instances"], "band_instances": full["band_instances"]}
+        check(res["render_max_abs_err"] <= MESH_RENDER_ATOL
+              and res["invdepth_max_abs_err"] <= MESH_RENDER_ATOL and res["radii_equal"],
+              f"{tag}: sharded render off the single-device one: {res}")
+        if "band" in imgs:
+            res["band_bitwise"] = all(torch.equal(imgs["band"][k], full[k])
+                                      for k in ("render", "invdepth", "radii"))
+            res["band_counts"] = imgs["band"]["band_counts"]
+            check(res["band_bitwise"], f"{tag}: band exchange render != full gather's")
+        del imgs, full
+
+        local = place(state)
+        torch.cuda.synchronize(device)
+        reset_counts()
+        local, metrics = step(local, camera, *args[1:])
+        torch.cuda.synchronize(device)
+        res["launches"] = read_counts()
+        check_counts(res["launches"], TRAIN_KERNELS, 1, f"{tag}: mesh train step")
+        res["loss"], res["loss_single_device"] = float(metrics["loss"]), ref_loss
+        res["params_max_abs_err"] = max(
+            float((v - ref_state.params[k][rows.start:rows.stop]).abs().max())
+            for k, v in local.params.items())
+        res["grad_accum_max_abs_err"] = float(
+            (local.stats["grad_accum"] - ref_state.stats["grad_accum"][rows.start:rows.stop])
+            .abs().max())
+        check(abs(res["loss"] - ref_loss) <= MESH_LOSS_RTOL * abs(ref_loss)
+              and res["params_max_abs_err"] <= MESH_PARAMS_ATOL
+              and res["grad_accum_max_abs_err"] <= MESH_GRAD_ACCUM_ATOL,
+              f"{tag}: mesh train step off the single-device step: {res}")
+
+        mesh.reset_stats()
+        mesh.timing = True  # a synchronize around each collective
+        ms = []
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            local, _ = step(local, camera, *args[1:])
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+        res["step_ms"] = ms
+        res["collectives_per_step"] = {
+            name: {"calls": rec["calls"] / MESH_TIMED, "bytes": rec["bytes"] / MESH_TIMED,
+                   "ms": rec["ms"] / MESH_TIMED} for name, rec in mesh.stats.items()}
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out.append(res)
+        del local
+    return out
+
+
+def _sum_counts(results, mesh):
+    """Launches summed over the ranks of one mesh's checked step."""
+    rows = [r["launches"] for rank in results for r in rank if r["mesh"] == mesh]
+    return {k: sum(c[k] for c in rows) for k in rows[0]}
+
+
+def mesh_cfg():
+    return {"device": DEVICE, "full": FULL, "capacity": TRAIN_CAPACITY}
+
+
+def phase_multi_device():
+    """MESHES as 4 ranks sharing the card over gloo, then PADDED_MESH as 3
+    ranks through `sharded_train_step` on the padded grid."""
+    from gsplat_tpu_torch.parallel import comm
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    four = comm.run_ranks(_mesh_rank, 4, "gloo", args=(mesh_cfg(), MESHES, "gloo"), timeout=900)
+    four_s = time.perf_counter() - t
+    t = time.perf_counter()
+    three = comm.run_ranks(_mesh_rank, 3, "gloo", args=(mesh_cfg(), (PADDED_MESH,), "gloo", True),
+                           timeout=600)
+    three_s = time.perf_counter() - t
+    sharing = ("ranks sharing one card over gloo (gloo copies the CUDA tensors of each "
+               "collective through host memory itself); times are of ranks contending for "
+               "one card and its host")
+    launches = {f"multi_device_{m}": _sum_counts(four, m) for m in ("2x2", "4x1", "1x4")}
+    launches["multi_device_1x3"] = _sum_counts(three, "1x3")
+    return {"sharing": sharing, "ranks_4": four, "ranks_3": three, "seconds_4": four_s,
+            "seconds_3": three_s, "launches": launches}
+
+
+def phase_nccl_1x1():
+    """A one-rank NCCL mesh on the card (the NCCL collectives' code path),
+    held against the single-device render and step as `_mesh_rank` holds
+    the gloo meshes."""
+    from gsplat_tpu_torch.parallel import comm
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = comm.run_ranks(_mesh_rank, 1, "nccl", args=(mesh_cfg(), ((1, 1),), "nccl"),
+                         timeout=600)
+    return {"rank": res[0][0], "seconds": time.perf_counter() - t,
+            "launches": _sum_counts(res, "1x1")}
+
+
+def phase_dryruns():
+    """`entry.dryrun_multichip(4)` and `entry.dryrun_multihost(8, 2)` on the
+    card, gloo (the ranks share it)."""
+    from gsplat_tpu_torch import entry
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    chip = entry.dryrun_multichip(4, backend="gloo")
+    chip_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host = entry.dryrun_multihost(8, 2, backend="gloo")
+    return {"multichip": chip, "multichip_s": chip_s, "multihost": host,
+            "multihost_s": time.perf_counter() - t}
+
+
+def phase_train_cli_mesh():
+    """`torchrun --nproc_per_node 2 -m gsplat_tpu_torch.cli.train --mesh 1x2
+    --dist_backend gloo` for CLI_ITERS iterations on the train CLI's scene
+    (densify forced early, a checkpoint at the end), the render CLI under
+    `--mesh 1x2` on the model, then the checkpoint resumed on one card for
+    10 more iterations in-process, counts reset just before and read just
+    after (K1' expand and hybrid pack, K2', K3', K4' once per iteration)."""
+    from PIL import Image
+
+    from gsplat_tpu_torch.cli import train as train_cli
+    from gsplat_tpu_torch.convert import read_checkpoint
+
+    torch.cuda.empty_cache()
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2", "-m"]
+    mesh = ["--mesh", "1x2", "--dist_backend", "gloo", "--device", DEVICE, "--quiet"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        src, _ = write_blender_scene(Path(tmp), size=CLI["size"], n=1000)
+        model = Path(tmp) / "trained"
+        base = ["-s", str(src), "-m", str(model), "--densify_from_iter", "5",
+                "--densification_interval", "10", "--densify_until_iter", str(CLI_ITERS),
+                "--opacity_reset_interval", "20", "--densify_grad_threshold", "1e-7",
+                "--disable_viewer"]
+        t = time.perf_counter()
+        res = subprocess.run([*torchrun, "gsplat_tpu_torch.cli.train", *base, "--iterations",
+                              str(CLI_ITERS), "--checkpoint_iterations", str(CLI_ITERS), *mesh],
+                             capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        train_s = time.perf_counter() - t
+        check(res.returncode == 0, f"torchrun train CLI --mesh 1x2 failed: rc {res.returncode}, "
+              f"{res.stdout[-600:]} {res.stderr[-1500:]}")
+        ckpt_path = model / f"chkpnt{CLI_ITERS}.pkl"
+        ckpt = read_checkpoint(str(ckpt_path))
+        n_alive = int(ckpt["state"]["alive"].sum())
+        check(ckpt["iteration"] == CLI_ITERS and n_alive > CLI_INIT_POINTS,
+              f"mesh checkpoint: iteration {ckpt['iteration']}, {n_alive} alive")
+
+        t = time.perf_counter()
+        res = subprocess.run([*torchrun, "gsplat_tpu_torch.cli.render", "-m", str(model), "-s",
+                              str(src), *mesh], capture_output=True, text=True, timeout=300,
+                             cwd=str(ROOT))
+        render_s = time.perf_counter() - t
+        check(res.returncode == 0, f"torchrun render CLI --mesh 1x2 failed: rc {res.returncode}, "
+              f"{res.stdout[-600:]} {res.stderr[-1500:]}")
+        pngs = sorted((model / "train" / f"ours_{CLI_ITERS}" / "renders").iterdir())
+        check(len(pngs) == 3, f"mesh render CLI wrote {len(pngs)} PNGs, want 3")
+        for p in pngs:
+            a = np.asarray(Image.open(p))
+            check(a.shape == (CLI["size"], CLI["size"], 3) and a.max() > a.min(),
+                  f"{p.name}: blank or misshapen mesh render")
+
+        buf = io.StringIO()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_ = train_cli.main([*base, "--iterations", str(CLI_ITERS + 10), "--start_checkpoint",
+                                  str(ckpt_path), "--device", DEVICE, "--quiet"])
+        resume_s = time.perf_counter() - t
+        launches = read_counts()
+        check(rc_ == 0 and f"at iteration {CLI_ITERS}" in buf.getvalue(),
+              f"resuming the mesh checkpoint on one card failed: {buf.getvalue()[-400:]}")
+        check_counts(launches, TRAIN_KERNELS, 10, "the mesh checkpoint resumed on one card")
+    return {"iterations": CLI_ITERS, "train_s": train_s, "render_s": render_s,
+            "resume_s": resume_s, "checkpoint_alive": n_alive,
+            "checkpoint_rows": int(ckpt["state"]["alive"].shape[0]), "launches": launches}
+
+
 def sass_counts(source, full=False):
     """{kernel function: {opcode: count}} of a built library, from
     `cuobjdump -sass`; with `full` the key is the whole mnemonic, its
@@ -3124,6 +3410,15 @@ def main() -> int:
     t = time.perf_counter()
     entry_summary = phase_entry()
     emit(phase="entry", **entry_summary, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    multi_summary = phase_multi_device()
+    emit(phase="multi_device", **multi_summary, seconds=time.perf_counter() - t)
+    nccl_summary = phase_nccl_1x1()
+    emit(phase="nccl_1x1", **nccl_summary)
+    emit(phase="dryrun_multichip", **phase_dryruns())
+    t = time.perf_counter()
+    cli_mesh_summary = phase_train_cli_mesh()
+    emit(phase="train_cli_mesh", **cli_mesh_summary, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     ops_summary, ops_rows = phase_probe_ops(device)
@@ -3153,7 +3448,10 @@ def main() -> int:
                                    "train_cli_resumed": cli_ckpt_summary["launches"]["resumed"],
                                    "viewer": viewer_summary["launches"],
                                    "bench": bench_summary["launches"],
-                                   "entry": entry_summary["launches"]})
+                                   "entry": entry_summary["launches"],
+                                   **multi_summary["launches"],
+                                   "nccl_1x1": nccl_summary["launches"],
+                                   "train_cli_mesh_resumed": cli_mesh_summary["launches"]})
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,7 +18,18 @@ to 2+N to `<model>/profile/trace.json`. The SIBR viewer is served on
 `--ip`/`--port` unless `--disable_viewer` is given; a port that cannot be
 bound disables it and training goes on. `--debug_from` checks the loss
 every step from that iteration on; `--detect_anomaly` turns on autograd's
-anomaly detection. `--mesh` is refused until the multi-device slice.
+anomaly detection.
+
+`--mesh GxT` trains over G x T ranks, one process each, as `torchrun`
+starts them:
+
+    torchrun --nproc_per_node N -m gsplat_tpu_torch.cli.train --mesh GxT -s SCENE -m MODEL
+
+`--dist_backend` names the collectives' backend: `nccl` (the default on
+`cuda`) when every rank has a card of its own, `gloo` (the default on the
+CPU) when the ranks share one card. Rank 0 writes the model directory and
+prints; the viewer is off under `--mesh` (it would see one rank's rows).
+`--blend_mode oit` is refused under `--mesh`.
 """
 
 from __future__ import annotations
@@ -63,6 +74,8 @@ def main(argv=None):
                         help="from this iteration on, fail fast on a non-finite loss")
     parser.add_argument("--detect_anomaly", action="store_true")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                        help="--mesh collectives (default: nccl on cuda, gloo on cpu)")
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
 
@@ -71,26 +84,48 @@ def main(argv=None):
     pipe_cfg = extract(PipelineConfig, args)
     if not model_cfg.source_path:
         parser.error("-s/--source_path is required")
-    if not model_cfg.model_path:
-        model_cfg = dataclasses.replace(
-            model_cfg, model_path=os.path.join("./output", str(uuid.uuid4())[:10]))
-    print(f"Optimizing {model_cfg.model_path}")
-    os.makedirs(model_cfg.model_path, exist_ok=True)
-    save_cfg_args(model_cfg.model_path, model_cfg)
 
     import torch
 
     from gsplat_tpu_torch.train.loop import train
     from gsplat_tpu_torch.viewer.network_gui import NetworkGUI
 
+    main_rank, owns_group = True, False
+    model_path = model_cfg.model_path or os.path.join("./output", str(uuid.uuid4())[:10])
+    if pipe_cfg.mesh:
+        import torch.distributed as dist
+
+        from gsplat_tpu_torch.device import resolve_device
+        from gsplat_tpu_torch.parallel import comm
+
+        args.dist_backend = args.dist_backend or comm.default_backend(
+            resolve_device(args.device))
+        owns_group = not dist.is_initialized()
+        dev = comm.rank_device(resolve_device(args.device), args.dist_backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)  # NCCL's object broadcast uses the current card
+        comm.init_distributed(args.dist_backend)
+        main_rank = dist.get_rank() == 0
+        shared = [model_path]  # every rank writes to rank 0's directory
+        dist.broadcast_object_list(shared, src=0)
+        model_path = shared[0]
+    model_cfg = dataclasses.replace(model_cfg, model_path=model_path)
+    if main_rank:
+        print(f"Optimizing {model_cfg.model_path}")
+        os.makedirs(model_cfg.model_path, exist_ok=True)
+        save_cfg_args(model_cfg.model_path, model_cfg)
+
     gui_server = None
-    if not args.disable_viewer:
+    if pipe_cfg.mesh and not args.disable_viewer:
+        if main_rank:
+            print("[viewer] disabled under --mesh", file=sys.stderr)
+    elif not args.disable_viewer:
         try:
             gui_server = NetworkGUI(args.ip, args.port)
         except OSError as e:  # the viewer never blocks training
             print(f"[viewer] disabled: {e}", file=sys.stderr)
     hooks = [gui_server.make_training_hook(model_cfg, pipe_cfg)] if gui_server else []
-    if args.profile_steps > 0:
+    if args.profile_steps > 0 and main_rank:
         hooks.append(_profile_hook(os.path.join(model_cfg.model_path, "profile"),
                                    args.profile_steps, args.iterations, args.device))
     if args.debug_from >= 0:
@@ -121,10 +156,15 @@ def main(argv=None):
                 checkpoint_every=args.checkpoint_every,
                 seed=args.seed,
                 device=args.device,
+                dist_backend=args.dist_backend,
             )
     finally:
         if gui_server:
             gui_server.close()
+        if owns_group:
+            torch.distributed.destroy_process_group()
+    if not main_rank:
+        return 0
     print("\nTraining complete.")
     for it, ev in results.get("test", {}).items():
         print(f"  iter {it}: test PSNR {ev['psnr']:.2f}  L1 {ev['l1']:.5f}")

@@ -11,9 +11,19 @@ checkpoints (`chkpnt<it>.pkl`, the rolling `rolling_chkpnt.pkl` written on
 a worker thread, and resume from either package's checkpoint) and the
 progress log.
 
-`--mesh` (multi-device) is refused until its slice is ported. The instance
-buffer is sized per frame, so there is no instance-capacity controller to
-port.
+`--mesh GxT` trains over a (gauss=G, tile=T) mesh of ranks
+(`gsplat_tpu/train/loop.py:296-360`), one process per rank as `torchrun`
+starts them: rank and world size come from its environment, each rank
+runs on `cuda:LOCAL_RANK` under NCCL or shares the card under gloo, and
+every rank picks the same cameras from `seed`. The state is split by rows
+(`parallel/sharding.py`) and each step runs the band pipeline
+(`parallel/pipeline.py`). A densify round (and a resize) gathers the
+state, runs the single-device `densify_and_prune` with the same generator
+on every rank and places it again; rank 0 writes the checkpoints and
+snapshots from the gathered state, in the single-device format, and runs
+the evaluation, tensorboard and the logs while the others wait at a
+barrier. `blend_mode="oit"` is refused under `--mesh`. The instance buffer
+is sized per frame, so there is no instance-capacity controller to port.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsplat_tpu_torch.capacity import CapacityController
 from gsplat_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
@@ -41,6 +52,8 @@ from gsplat_tpu_torch.core.types import make_render_settings
 from gsplat_tpu_torch.data.scene import Scene
 from gsplat_tpu_torch.device import resolve_device
 from gsplat_tpu_torch.model import init_from_pcd
+from gsplat_tpu_torch.parallel import comm, sharding
+from gsplat_tpu_torch.parallel.pipeline import make_pipeline_train_step
 from gsplat_tpu_torch.render import render
 from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.resize import resize_train_state
@@ -265,42 +278,61 @@ def train(
     checkpoint_every: int = 0,
     seed: int = 0,
     device=None,
+    dist_backend: str | None = None,
 ):
     """Run the optimisation on `device` (`None` means `cuda`); returns
-    (state, scene, results dict).
+    (state, scene, results dict), the state whole on every rank of a mesh.
 
     `start_checkpoint` resumes from a checkpoint of either package at its
     iteration + 1, with the SH degree the ramp would have reached; the camera
-    order restarts from `seed`, as in the JAX loop.
+    order restarts from `seed`, as in the JAX loop. Under `pipe.mesh`,
+    `dist_backend` names the collectives' backend (default NCCL on `cuda`,
+    gloo on the CPU; ranks sharing one card need gloo).
     """
-    if pipe.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-device training is not ported yet (the multi-device slice)")
-    dev = resolve_device(device)
-    scene = Scene(
-        model_cfg.source_path,
-        model_path=model_cfg.model_path or None,
-        images=model_cfg.images,
-        depths=model_cfg.depths,
-        resolution=model_cfg.resolution,
-        white_background=model_cfg.white_background,
-        eval=model_cfg.eval,
-        train_test_exp=model_cfg.train_test_exp,
-        device=dev,
-    )
+    mesh = _join_mesh(pipe, device, dist_backend) if pipe.mesh else None
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    main = mesh is None or mesh.rank == 0
+    quiet = quiet or not main
+    model_path = model_cfg.model_path or None
+
+    def load_scene():
+        return Scene(
+            model_cfg.source_path,
+            model_path=model_path if main else None,
+            images=model_cfg.images,
+            depths=model_cfg.depths,
+            resolution=model_cfg.resolution,
+            white_background=model_cfg.white_background,
+            eval=model_cfg.eval,
+            train_test_exp=model_cfg.train_test_exp,
+            device=dev,
+        )
+
+    scene = load_scene() if main else None
+    if mesh is not None:
+        dist.barrier()  # rank 0 first: a Blender scene's random init is written once
+        scene = scene or load_scene()
     train_cams = scene.get_train_cameras()
     first_iter = 0
     if start_checkpoint:
         state, first_iter = load_checkpoint(start_checkpoint, dev)
-        print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
+        if main:
+            print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
     else:
         params, alive = init_from_pcd(
             scene.info.points, scene.info.colors, max_sh_degree=model_cfg.sh_degree,
             capacity=pipe.capacity or None, device=dev,
         )
         state = init_train_state(params, alive, num_images=len(train_cams), seed=seed)
+    if mesh is not None:
+        state = resize_train_state(state, sharding.mesh_capacity(state.capacity, mesh))
     if not quiet:
-        print(f"[init] {int(state.alive.sum())} gaussians in {state.capacity} rows on {dev}")
+        print(f"[init] {int(state.alive.sum())} gaussians in {state.capacity} rows on {dev}"
+              + (f", mesh {pipe.mesh} over {dist.get_world_size()} ranks ({mesh.backend})"
+                 if mesh is not None else ""))
+    capacity = state.capacity
+    if mesh is not None:
+        state = sharding.place_train_state(mesh, state)
 
     extent = float(scene.cameras_extent)
     xyz_sched = expon_lr_func(
@@ -327,14 +359,27 @@ def train(
 
     step_cache = {}
 
-    def step_fn(active_sh):
-        if active_sh not in step_cache:
-            step_cache[active_sh] = make_train_step(opt, settings_for(active_sh),
-                                                    use_exposure=use_exposure)
-        return step_cache[active_sh]
+    def step_fn(active_sh, camera):
+        key = (active_sh, camera.width, camera.height)
+        if key not in step_cache:
+            if mesh is None:
+                step_cache[key] = make_train_step(opt, settings_for(active_sh),
+                                                  use_exposure=use_exposure)
+            else:
+                # the band exchange where there are bands (`exchange_capacity`
+                # 0 asks for the full gather), as the JAX loop sets it
+                step_cache[key] = make_pipeline_train_step(
+                    mesh, opt, settings_for(active_sh), camera.width, camera.height,
+                    use_exposure=use_exposure,
+                    exchange_capacity=pipe.exchange_capacity if mesh.sizes["tile"] > 1 else 0)
+        return step_cache[key]
+
+    def whole(state):
+        """The whole state: gathered from every rank on a mesh."""
+        return state if mesh is None else sharding.gather_train_state(mesh, state)
 
     densify_step = make_densify_step(opt)
-    tb = _summary_writer(scene.model_path)
+    tb = _summary_writer(scene.model_path)  # None on ranks other than 0
 
     rng = random.Random(seed)
     np_rng = np.random.default_rng(seed)
@@ -344,7 +389,7 @@ def train(
     # resume, at the checkpoint's capacity.
     gauss_ctl = (
         CapacityController(
-            state.capacity, window=10, event_window=3, floor=4096,
+            capacity, window=10, event_window=3, floor=4096,
             grow_frac=0.75, grow_margin=1.5, shrink_margin=1.6,
         )
         if not pipe.capacity
@@ -376,7 +421,7 @@ def train(
                   if opt.random_background else bg_color)
             depth_w = depth_sched(iteration) if cam.depth_reliable else 0.0
 
-            state, metrics = step_fn(active_sh)(
+            state, metrics = step_fn(active_sh, cam.camera)(
                 state, cam.camera, gt, mask, invd, dmask, bg,
                 xyz_sched(iteration), exp_sched(iteration), depth_w, cam.uid,
             )
@@ -385,15 +430,21 @@ def train(
             # training_report (`train.py:158` precedes `:163-174`): after an
             # opacity reset the render would be transparent
             if iteration in testing_iterations:
-                _report(results, tb, iteration, state, settings_for(active_sh), bg_color,
-                        pixels, scene.get_test_cameras(), train_cams)
+                full = whole(state)
+                if main:
+                    _report(results, tb, iteration, full, settings_for(active_sh), bg_color,
+                            pixels, scene.get_test_cameras(), train_cams)
+                if mesh is not None:
+                    dist.barrier()
 
             # densification cadence (`train.py:163-174`)
             if iteration < opt.densify_until_iter:
                 if (iteration > opt.densify_from_iter
                         and iteration % opt.densification_interval == 0):
                     size_threshold = 20 if iteration > opt.opacity_reset_interval else 0
-                    state, dinfo = densify_step(state, extent, size_threshold)
+                    # on a mesh every rank densifies the gathered state with
+                    # the same generator, so the ranks stay in step
+                    state, dinfo = densify_step(whole(state), extent, size_threshold)
                     n_alive = dinfo["n_alive"]
                     if gauss_ctl is not None:
                         if dinfo["n_pruned"] * 3 >= n_alive:
@@ -402,9 +453,14 @@ def train(
                             gauss_ctl.notify_structural_change()
                         new_gcap = gauss_ctl.update(n_alive, dinfo["n_dropped"])
                         if new_gcap is not None:
+                            if mesh is not None:
+                                new_gcap = sharding.mesh_capacity(new_gcap, mesh)
                             state = resize_train_state(state, new_gcap)
-                            print(f"[auto] it {iteration}: alive {n_alive} — "
-                                  f"gaussian capacity -> {new_gcap}")
+                            if main:
+                                print(f"[auto] it {iteration}: alive {n_alive} — "
+                                      f"gaussian capacity -> {new_gcap}")
+                    if mesh is not None:
+                        state = sharding.place_train_state(mesh, state)
                     if not quiet and iteration % 1000 == 0:
                         print(
                             f"[densify {iteration}] alive={dinfo['n_alive']} "
@@ -422,7 +478,10 @@ def train(
                 results["loss"][iteration] = loss
                 ema_loss = 0.4 * loss + 0.6 * ema_loss
                 ema_depth = 0.4 * float(metrics["depth_l1"]) + 0.6 * ema_depth
-                n_alive = int(state.alive.sum())
+                n_alive = state.alive.sum()
+                if mesh is not None:
+                    n_alive = comm.all_reduce_sum(n_alive, mesh, sharding.gauss_axes_of(mesh))
+                n_alive = int(n_alive)
                 if tb is not None:
                     tb.add_scalar("train_loss_patches/l1_loss", float(metrics["l1"]), iteration)
                     tb.add_scalar("train_loss_patches/total_loss", loss, iteration)
@@ -437,19 +496,23 @@ def train(
                     )
             t_iter = time.time()
 
-            if iteration in saving_iterations and scene.model_path:
+            save = model_path and iteration in saving_iterations
+            ckpt = model_path and iteration in checkpoint_iterations
+            rolling = model_path and checkpoint_every and iteration % checkpoint_every == 0
+            full = whole(state) if save or ckpt or rolling else state
+            if save and main:
                 print(f"\n[ITER {iteration}] Saving Gaussians")
-                scene.save(iteration, state.params, state.alive, state.exposure,
+                scene.save(iteration, full.params, full.alive, full.exposure,
                            [c.image_name for c in train_cams])
-            if iteration in checkpoint_iterations and scene.model_path:
+            if ckpt and main:
                 print(f"\n[ITER {iteration}] Saving Checkpoint")
-                save_checkpoint(os.path.join(scene.model_path, f"chkpnt{iteration}.pkl"),
-                                state, iteration)
-            if checkpoint_every and iteration % checkpoint_every == 0 and scene.model_path:
+                save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.pkl"),
+                                full, iteration)
+            if rolling and main:
                 # rolling checkpoint for stall or crash recovery, overwritten
                 # in place (`cli/train_supervised.py` resumes from it)
-                ckpt_writer.submit(os.path.join(scene.model_path, "rolling_chkpnt.pkl"),
-                                   state, iteration)
+                ckpt_writer.submit(os.path.join(model_path, "rolling_chkpnt.pkl"),
+                                   full, iteration)
             if on_iteration is not None:
                 on_iteration(iteration, state, metrics)
         ckpt_writer.flush()
@@ -459,4 +522,16 @@ def train(
             tb.close()
 
     results["wall_s"] = time.time() - t0
-    return state, scene, results
+    return whole(state), scene, results
+
+
+def _join_mesh(pipe: PipelineConfig, device, backend):
+    """This rank's mesh for `--mesh GxT`, joining the job's process group
+    from `torchrun`'s environment unless the caller already has."""
+    if pipe.blend_mode != "sorted":
+        raise ValueError(f"--blend_mode {pipe.blend_mode}: the multi-device path blends sorted, "
+                         "as the JAX pipeline does; OIT is refused under --mesh")
+    g, t = sharding.parse_mesh(pipe.mesh)
+    backend = backend or comm.default_backend(resolve_device(device))
+    comm.init_distributed(backend)
+    return sharding.make_mesh(g, t, backend=backend, device=device)

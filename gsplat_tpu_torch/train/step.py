@@ -81,7 +81,7 @@ def init_train_state(params: dict, alive, num_images: int, seed: int = 0) -> Tra
 
 
 def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
-                    use_exposure: bool = False):
+                    use_exposure: bool = False, render_fn=None):
     """Build the train step for a given config.
 
     The returned function:
@@ -92,8 +92,18 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
     `invdepth_gt` and `depth_mask` are always passed (zeros when absent),
     with `depth_weight` 0 gating them. It runs on the device of `state`.
     Metrics are tensors (no host sync) except `num_instances`.
+
+    `render_fn(camera, params, alive, bg, mean2d_offset=, exposure=)` lets
+    the multi-device pipeline (`parallel/pipeline.py`) replace the
+    single-device `render`, every other step semantic kept
+    (`gsplat_tpu/train/step.py:66-98`); its "n_visible", where given, is
+    the visible count over all shards.
     """
     sparse = opt.optimizer_type == "sparse_adam"
+    if render_fn is None:
+        def render_fn(camera, params, alive, bg, mean2d_offset=None, exposure=None):
+            return render(camera, params, alive, settings, bg, mean2d_offset=mean2d_offset,
+                          exposure=exposure, device=alive.device)
 
     def train_step(state: TrainState, camera, gt_image, alpha_mask, invdepth_gt, depth_mask,
                    bg, xyz_lr, exposure_lr, depth_weight, exposure_index):
@@ -102,11 +112,10 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
         exposure = state.exposure.detach().requires_grad_(use_exposure)
         mean2d_offset = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
 
-        out = render(
-            camera, SimpleNamespace(**leaves), state.alive, settings, bg,
+        out = render_fn(
+            camera, SimpleNamespace(**leaves), state.alive, bg,
             mean2d_offset=mean2d_offset,
             exposure=exposure[exposure_index] if use_exposure else None,
-            device=dev,
         )
         image = out["render"] * alpha_mask
         loss, ll1 = losses.photometric_loss(image, gt_image, opt.lambda_dssim)
@@ -162,7 +171,7 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
             "num_instances": out["num_instances"],
             "instance_overflow": out["instance_overflow"],
             "tile_overflow": out["tile_overflow"],
-            "n_visible": visibility.sum(),
+            "n_visible": out.get("n_visible", visibility.sum()),
         }
         return new_state, metrics
 

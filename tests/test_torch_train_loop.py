@@ -89,7 +89,8 @@ def test_train_loop_loss_falls_and_refuses_unported_options(small_scene, tmp_pat
     assert len(losses) == 12 and np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
     assert state.step == 12 and all(torch.isfinite(v).all() for v in state.params.values())
-    # checkpoints are ported (`tests/test_torch_checkpoint.py`); the
-    # multi-device path is not
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train(cfg, opt, PipelineConfig(mesh="2x2"), quiet=True, device="cpu")
+    # checkpoints (`tests/test_torch_checkpoint.py`) and the multi-device
+    # path (`tests/test_torch_parallel_loop.py`) are ported; OIT is refused
+    # under a mesh, before any process group is joined
+    with pytest.raises(ValueError, match="OIT is refused under --mesh"):
+        train(cfg, opt, PipelineConfig(mesh="2x2", blend_mode="oit"), quiet=True, device="cpu")
