@@ -142,12 +142,25 @@ JSON line per phase:
    loopback requests of the flagship scene (scaling modifier 1.0, 0.5,
    1.0) with exactly the bytes of the port's render, K1' and K2' once per
    request, and the round-trip ms;
-   `bench`: `python -m gsplat_tpu_torch.bench`'s `main` (the top-level
-   `bench.py`'s four points: 1M gaussians hybrid and float32 and 262,144
-   hybrid, forward and backward, 1M forward alone), its JSON keys, finite
+   `bench`: `python -m gsplat_tpu_torch.bench`'s points through
+   `bench.run` (the top-level `bench.py`'s four points: 1M gaussians
+   hybrid and float32 and 262,144 hybrid, forward and backward, 1M forward
+   alone; not the trained-cloud scan of `main`), its JSON keys, finite
    positive rates, device time per call at most the host's, the kernels
    each point launches; `entry`: `gsplat_tpu_torch.entry.entry()` once
    (K1' and K2' once each, a finite image);
+   `quality_fixture`: the COLMAP quality run of `gsplat_tpu_torch/scripts/
+   colmap_proxy.py` at its full size (4,096 GT gaussians, 2,048 SfM points,
+   64 PINHOLE views at 400x304, focal 380, seed 3) cut to 1,500
+   iterations, its `main` in-process with the counts reset just before and
+   read just after (K1' and K2' per GT view, iteration and evaluation or
+   render-CLI view, the packs by packet mode, K3' and K4' per iteration,
+   exactly); the fixture against itself (3 views re-rendered from the GT
+   cloud within 1.5/255 of the saved PNGs, the loaded pixels within
+   1/255); the loop's held-out PSNR at the end at least QUALITY_PSNR_BAR
+   (from the full runs); the trained-cloud row of the bench on the
+   snapshot and the warp cull on a held-out view (whole-plane boxes
+   counted; no kept pair outside its box or in a skipped warp);
    `multi_device`: the flagship train state (1,048,576 gaussians in
    2,097,152 rows, 1920x1080, hybrid) on meshes of ranks that share the
    card over gloo (spawned processes; gloo copies each collective's CUDA
@@ -197,7 +210,7 @@ JSON line per phase:
    P3' and P4'; the COLMAP train path's, the bench's and the entry's counts
    beside them, and those of the checkpoint runs A and B, the direct
    `evaluate_test`, the two train CLI runs of `train_cli_ckpt`, the
-   viewer, each mesh's checked step summed over its ranks
+   viewer, the quality run, each mesh's checked step summed over its ranks
    (`multi_device_<G>x<T>`), `nccl_1x1` and the mesh checkpoint's resumed
    run (`train_cli_mesh_resumed`). The render and train paths launch no
    probe kernel.
@@ -1014,13 +1027,11 @@ def phase_subnormals(device):
 
 def cull_summary(stats, what):
     """`cull_stats_torch` of a frame, checked: no kept pair outside its
-    box or at a pixel whose warp does not reach it; with each layout's
-    share of culled (warp, instance) pairs."""
+    box or at a pixel whose warp does not reach it."""
     check(stats["kept_outside_box"] == 0 and stats["kept_unreached"] == 0,
           f"{what}: {stats['kept_outside_box']} kept pairs outside their pixel box, "
           f"{stats['kept_unreached']} in warps the cull skips")
-    return {**stats, "culled_share": {name: n / max(stats["warp_instances"], 1)
-                                      for name, n in stats["culled_warp_instances"].items()}}
+    return stats
 
 
 def phase_main_path(device):
@@ -2619,19 +2630,17 @@ def phase_viewer(device):
 
 
 def phase_bench():
-    """`python -m gsplat_tpu_torch.bench` as its `main` runs it, counts
-    reset just before and read just after: `bench.py`'s JSON keys, every
-    rate finite and positive, the device time per call finite, positive and
-    at most the host's; each point's kernels launched once per call."""
+    """`python -m gsplat_tpu_torch.bench`'s points as its `main` runs them
+    (`bench.run` at the defaults; the trained-cloud rows, which depend on
+    what earlier runs left on disk, are the quality phase's), counts reset
+    just before and read just after: `bench.py`'s JSON keys, every rate
+    finite and positive, the device time per call finite, positive and at
+    most the host's; each point's kernels launched once per call."""
     from gsplat_tpu_torch import bench
 
     reset_counts()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc_ = bench.main([])
+    res = json.loads(json.dumps(bench.run()))
     launches = read_counts()
-    check(rc_ == 0, "the bench returned non-zero")
-    res = json.loads(buf.getvalue().strip().splitlines()[-1])
     check({"metric", "value", "unit", "vs_baseline", "points", "device"} <= set(res),
           f"bench keys: {sorted(res)}")
     pts = res["points"]
@@ -2668,6 +2677,113 @@ def phase_entry():
     check(img.shape == (192, 256, 3) and bool(torch.isfinite(img).all())
           and float(img.std()) > 0.01, "entry(): bad image")
     return {"launches": launches, "image_mean": float(img.mean()), "image_std": float(img.std())}
+
+
+# the COLMAP quality run, cut short: the full runs' recipe and train seed 0
+QUALITY_SMOKE_ITERS = 1_500  # `colmap_proxy.SMOKE_ITERATIONS`: the full runs test there too
+# the loop's held-out PSNR at 1,500 iterations in the full runs
+# (artifacts/colmap_proxy_torch/seed{0,1}/summary.json, `test_psnr_log`):
+# seed 0 28.85, seed 1 28.41 dB; their lower one less their spread (0.44)
+# and 0.5 dB is 27.47, rounded down
+QUALITY_PSNR_BAR = 27.4
+QUALITY_SELF_VIEWS = (0, 21, 63)  # views re-rendered for the fixture's self-check
+
+
+def phase_quality_fixture(device):
+    """The COLMAP quality run at full size, cut to QUALITY_SMOKE_ITERS
+    iterations: `python -m gsplat_tpu_torch.scripts.colmap_proxy`'s `main`
+    in this process (`--in_process --skip_report`, train seed 0), counts
+    reset just before and read just after. It writes the recipe's fixture
+    on the card (4,096 GT gaussians, 2,048 SfM points, 64 PINHOLE views at
+    400x304, focal 380, seed 3: K1' expand, float32 pack and K2' once per
+    view), trains (K1' expand and hybrid pack, K2', K3', K4' once per
+    iteration; K1' and K2' once per evaluation render: 8 held-out and 5
+    train views), renders the 8 held-out views (K1' expand, float32 pack,
+    K2') and scores them. Checks: the launches exactly; the fixture against
+    itself (`tests/test_colmap_e2e.py:137-193`): the GT cloud re-rendered
+    from views the reader loads within 1.5/255 of the saved PNG, the
+    loaded pixels within 1/255; the held-out PSNR of the loop's evaluation
+    at the end at least QUALITY_PSNR_BAR (the full runs' own evaluation at
+    this iteration, less their seed spread and 0.5 dB); then
+    `bench.measure_render_only_trained` on the run's snapshot (the JAX
+    bench's keys; its 2 ms floor reported, not lowered) and
+    `colmap_proxy.cull_report` on the first held-out view, float32 and
+    hybrid packets: whole-plane boxes counted, no kept pair outside its box
+    or in a skipped warp."""
+    from PIL import Image
+
+    from gsplat_tpu_torch import bench
+    from gsplat_tpu_torch.convert import params_from_numpy
+    from gsplat_tpu_torch.data.scene import load_scene
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.scripts import colmap_proxy as cp
+    from gsplat_tpu_torch.scripts.make_fixtures import gaussian_gt_cloud, gt_render_settings
+
+    check(cp.SMOKE_ITERATIONS == QUALITY_SMOKE_ITERS, "the full runs test at "
+          f"{cp.SMOKE_ITERATIONS}, the smoke runs to {QUALITY_SMOKE_ITERS}")
+    n_it, recipe = QUALITY_SMOKE_ITERS, cp.RECIPE
+    views = recipe["n_images"]
+    test_views = len(range(0, views, 8))  # the llffhold split
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out = Path(tmp) / "run"
+        buf = io.StringIO()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_ = cp.main(["--out", str(out), "--seed", "0", "--iterations", str(n_it),
+                           "--device", DEVICE, "--in_process", "--skip_report"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = read_counts()
+        check(rc_ == 0, f"colmap_proxy returned {rc_}: {buf.getvalue()[-1500:]}")
+        renders = test_views + EVAL_TRAIN_VIEWS
+        want = {"expand_instances": views + n_it + renders + test_views,
+                "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
+                "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
+                "reduce_by_gid": n_it}
+        check_launches(launches, want, "quality run")
+        with open(out / "summary.json") as f:
+            row = json.load(f)["model"]
+        psnr_log = row["test_psnr_log"][str(n_it)]
+        scored = row["results"][f"ours_{n_it}"]
+        check(np.isfinite(scored["PSNR"]) and scored["LPIPS"] is None
+              and scored["LPIPS_status"] == "weights_unavailable", f"quality scores {scored}")
+        check(psnr_log >= QUALITY_PSNR_BAR, f"quality run: held-out PSNR {psnr_log} at {n_it}, "
+              f"under the bar {QUALITY_PSNR_BAR}")
+
+        # the fixture against itself
+        scene_dir, model_dir = str(out / "scene"), str(out / "model")
+        scene = load_scene(scene_dir, device)
+        cams = scene.get_train_cameras()
+        check(len(cams) == views, f"the fixture loads {len(cams)} views")
+        gt = params_from_numpy(gaussian_gt_cloud(
+            recipe["n_gauss"], np.random.default_rng(recipe["seed"]))[0], DEVICE)
+        alive = torch.ones(recipe["n_gauss"], dtype=torch.bool, device=device)
+        self_err = {}
+        for i in QUALITY_SELF_VIEWS:
+            with torch.no_grad():
+                img = render(cams[i].camera, gt, alive, gt_render_settings(), [0.0, 0.0, 0.0],
+                             device=DEVICE)["render"].cpu().numpy()
+            with Image.open(out / "scene" / "images" / f"r_{i:03d}.png") as im:
+                saved = np.asarray(im, np.float32) / 255.0
+            self_err[i] = {"render": float(np.abs(np.clip(img, 0, 1) - saved).max()),
+                           "loaded": float(np.abs(cams[i].image - saved).max())}
+            check(self_err[i]["render"] <= 1.5 / 255.0 and self_err[i]["loaded"] <= 1.0 / 255.0,
+                  f"fixture view {i} disagrees with itself: {self_err[i]}")
+
+        trained = bench.measure_render_only_trained(model_dir, scene_dir, iteration=n_it,
+                                                    device=DEVICE)
+        check(trained is not None and ("invalid" in trained or (
+            set(trained) == {"pixels_per_s", "ms", "n_gauss", "vs_baseline"}
+            and trained["n_gauss"] == row["final_alive"] and trained["pixels_per_s"] > 0)),
+            f"trained-cloud row {trained}")
+        cull = cp.cull_report(model_dir, scene_dir, n_it, DEVICE)
+        for dtype in ("float32", "hybrid"):
+            cull[dtype] = cull_summary(cull[dtype], f"quality run, {dtype} packets")
+    return {"iterations": n_it, "run_s": run_s, "summary": row, "self_consistency": self_err,
+            "psnr_bar": QUALITY_PSNR_BAR, "trained_cloud": trained, "cull": cull,
+            "launches": launches}
 
 
 # the multi-device phases: meshes of ranks that share the one card over gloo
@@ -3411,6 +3527,9 @@ def main() -> int:
     entry_summary = phase_entry()
     emit(phase="entry", **entry_summary, seconds=time.perf_counter() - t)
     t = time.perf_counter()
+    quality_summary = phase_quality_fixture(device)
+    emit(phase="quality_fixture", **quality_summary, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
     multi_summary = phase_multi_device()
     emit(phase="multi_device", **multi_summary, seconds=time.perf_counter() - t)
     nccl_summary = phase_nccl_1x1()
@@ -3449,6 +3568,7 @@ def main() -> int:
                                    "viewer": viewer_summary["launches"],
                                    "bench": bench_summary["launches"],
                                    "entry": entry_summary["launches"],
+                                   "quality_fixture": quality_summary["launches"],
                                    **multi_summary["launches"],
                                    "nccl_1x1": nccl_summary["launches"],
                                    "train_cli_mesh_resumed": cli_mesh_summary["launches"]})

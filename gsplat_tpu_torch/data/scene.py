@@ -120,3 +120,13 @@ class Scene:
             mapping = {nm: exp[i].tolist() for i, nm in enumerate(names[: exp.shape[0]])}
             with open(os.path.join(self.model_path, "exposure.json"), "w") as f:
                 json.dump(mapping, f, indent=2)
+
+
+def load_scene(source_path: str, device="cuda", eval: bool = False,
+               white_background: bool = False) -> Scene:
+    """A scene's cameras at full resolution in file order, with no model
+    directory: the loader of the fixture generator, the COLMAP quality run
+    and the trained-cloud bench row."""
+    return Scene(source_path, model_path=None, images="images", depths="", resolution=-1,
+                 white_background=white_background, eval=eval, train_test_exp=False,
+                 shuffle=False, device=device)

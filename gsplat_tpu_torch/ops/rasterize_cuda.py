@@ -175,6 +175,11 @@ def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16
     at a pixel whose warp does not reach the slot (`kept_unreached`): both
     must be 0. Per layout of `WARP_LAYOUTS`, the (warp, instance) pairs the
     cull skips (`culled_warp_instances`), of `warp_instances` = 8 per slot.
+    `whole_plane`: the slots whose box is the whole plane, which the cull
+    never skips: `whole_plane_nonfinite` of them have a non-finite row,
+    `whole_plane_degenerate` a finite conic that is not positive definite
+    or is past `DEGENERATE`. The shares: `whole_plane_share` of the slots,
+    and per layout `culled_share` of the (warp, instance) pairs.
     """
     dev = inst_t.device
     length = (tile_end - tile_start).long()
@@ -183,7 +188,7 @@ def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16
     slot = tile_start.long()[tile_of] + (torch.arange(tile_of.shape[0], device=dev) - first[tile_of])
     offs = tile_pixel_coords(1, 1, 16, dev)[0]  # (256, 2) pixel offsets in a tile
     warp_of = pixel_warps(device=dev)
-    kept = outside = unreached = 0
+    kept = outside = unreached = whole = nonfinite = 0
     culled = dict.fromkeys(WARP_LAYOUTS, 0)
     for c0 in range(0, slot.shape[0], chunk):
         tiles = tile_of[c0:c0 + chunk]
@@ -194,6 +199,9 @@ def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16
             if layout == (WARP_W, WARP_H):
                 reach_pix = reach[:, warp_of]
         box = pixel_box_torch(col)
+        plane = torch.isinf(box[0]) & (box[0] < 0)
+        whole += int(plane.sum())
+        nonfinite += int((plane & ~torch.isfinite(col[:6]).all(dim=0)).sum())
         px = ((tiles % grid_x) * 16).to(torch.float32)[:, None] + offs[:, 0]
         py = (torch.div(tiles, grid_x, rounding_mode="floor") * 16).to(torch.float32)[:, None] \
             + offs[:, 1]
@@ -203,9 +211,13 @@ def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16
         kept += int(keep.sum())
         outside += int((keep & ~inside).sum())
         unreached += int((keep & ~reach_pix).sum())
-    return {"instances": int(slot.shape[0]), "warp_instances": int(slot.shape[0]) * WARPS,
-            "culled_warp_instances": culled, "kept_pairs": kept, "kept_outside_box": outside,
-            "kept_unreached": unreached}
+    n = int(slot.shape[0])
+    return {"instances": n, "warp_instances": n * WARPS, "culled_warp_instances": culled,
+            "kept_pairs": kept, "kept_outside_box": outside, "kept_unreached": unreached,
+            "whole_plane": whole, "whole_plane_nonfinite": nonfinite,
+            "whole_plane_degenerate": whole - nonfinite,
+            "whole_plane_share": whole / max(n, 1),
+            "culled_share": {name: c / max(n * WARPS, 1) for name, c in culled.items()}}
 
 
 def blend_packed_torch(
