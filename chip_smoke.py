@@ -45,11 +45,11 @@ JSON line per phase:
    per-row max relative error below 1e-5;
 8. K5' (OIT forward, `blend_oit_fwd`) against its plain twin at those
    sizes, float32 and hybrid packets, with and without NaN conic/opacity
-   entries: N and D per pixel relative to max(1, |want|) below 2e-5, T
-   within atol 2e-5 (`k5_vs_plain`);
+   entries: `torch.equal` (`k5_vs_plain`; N and D per pixel relative to
+   max(1, |want|) and T's abs error reported beside it);
 9. K6' (OIT backward, `blend_oit_bwd`) against its plain twin in the same
-   cases, with a seeded cotangent of all six raw outputs: per-row max
-   relative error below 1e-5 (`k6_vs_plain`);
+   cases, with a seeded cotangent of all six raw outputs: `torch.equal`
+   (`k6_vs_plain`; per-row max relative error reported);
 10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
@@ -64,8 +64,9 @@ JSON line per phase:
 12. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
    the float32 pack once per frame, K5' once, K2' never), 10 sorted and 10
-   OIT frames in turns, stage split, busy share, peak memory, K5' against
-   its twin on 64 tiles and its row;
+   OIT frames in turns, stage split, busy share, peak memory, K5'
+   `torch.equal` to its twin on the whole frame and its row (with its
+   walked pairs and culled share);
 13. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
    at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
    packets (counts read around them) and the bf16 pack's row;
@@ -99,7 +100,8 @@ JSON line per phase:
    render within atol 1e-6 of the original's;
 18. the OIT train path (`oit_train_path`): as 14 with `blend_mode="oit"`
    (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
-   never), and K6' against its twin on the whole train frame;
+   never), and K6' (and the step's K5' output) `torch.equal` to its twin
+   on the whole train frame, its walked pairs and culled share;
 19. the train CLI (30 iterations, densification forced early) and the render
    CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
    oit` (`train_cli_oit`);
@@ -160,7 +162,11 @@ JSON line per phase:
    1/255); the loop's held-out PSNR at the end at least QUALITY_PSNR_BAR
    (from the full runs); the trained-cloud row of the bench on the
    snapshot and the warp cull on a held-out view (whole-plane boxes
-   counted; no kept pair outside its box or in a skipped warp);
+   counted; no kept pair outside its box or in a skipped warp); then the
+   trained cloud on that view in OIT mode, float32 and hybrid packets,
+   with the L1 loss's cotangent through the OIT composite: K5' and K6'
+   each `torch.equal` to its twin, their walked pairs and culled shares
+   (`oit_trained_frame`);
    `multi_device`: the flagship train state (1,048,576 gaussians in
    2,097,152 rows, 1920x1080, hybrid) on meshes of ranks that share the
    card over gloo (spawned processes; gloo copies each collective's CUDA
@@ -262,7 +268,6 @@ WARMUP, TIMED = 5, 20
 CHECK_TILES = 64
 ATOL = 2e-5
 ROW_REL = 1e-5
-OIT_REL = 2e-5  # K5''s N and D per pixel, relative to max(1, |want|)
 BF16_FRAMES = 3
 
 
@@ -796,10 +801,10 @@ def oit_errors(got, want):
 
 def phase_oit_blend(device):
     """K5' vs blend_oit_packed_torch on the seeded scene at 640x480 and
-    200x120, float32 and hybrid packets (and NaN conic/opacity rows): N and
-    D per pixel relative to max(1, |want|) below 2e-5, T within atol 2e-5.
-    `bitwise_equal` says whether `log1pf`/`expf` in K5' and `torch.log1p`/
-    `torch.exp` gave the same bits."""
+    200x120, float32 and hybrid packets (and NaN conic/opacity rows):
+    `torch.equal` (its warp cull and predicated walk add every kept pair in
+    the twin's order); N and D per pixel relative to max(1, |want|) and T's
+    abs error reported."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
@@ -816,8 +821,9 @@ def phase_oit_blend(device):
                 got, want = rc.blend_oit_fwd(*args), rc.blend_oit_packed_torch(*args)
                 nd_rel, t_err = oit_errors(got, want)
                 check(bool(torch.isfinite(got).all()), f"K5' {w}x{h} {label}: non-finite sums")
-                check(nd_rel < OIT_REL and t_err <= ATOL,
-                      f"K5' {w}x{h} {label}: N/D rel err {nd_rel}, T abs err {t_err}")
+                check(torch.equal(got, want),
+                      f"K5' {w}x{h} {label}: not equal to its twin (N/D rel err {nd_rel}, "
+                      f"T abs err {t_err})")
                 cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
                               "nd_max_rel_err": nd_rel, "t_max_abs_err": t_err,
                               "max_abs_err": float((got - want).abs().max()),
@@ -828,8 +834,9 @@ def phase_oit_blend(device):
 def phase_oit_bwd(device):
     """K6' vs blend_oit_bwd_packed_torch at 640x480 and 200x120, float32 and
     hybrid packets, with a seeded cotangent of all six raw outputs (N0..3,
-    D, T) and with NaN conic/opacity entries: per-row max relative error
-    below 1e-5."""
+    D, T) and with NaN conic/opacity entries: `torch.equal` (each instance
+    walks its box's pixels in the twin's order); the per-row max relative
+    error reported."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
@@ -851,7 +858,8 @@ def phase_oit_bwd(device):
                 want = rc.blend_oit_bwd_packed_torch(*args, fwd, dout)
                 check(bool(torch.isfinite(got).all()), f"K6' {w}x{h} {label}: non-finite rows")
                 err = per_row_rel_err(got, want)
-                check(err < ROW_REL, f"K6' {w}x{h} {label}: per-row max rel err {err}")
+                check(torch.equal(got, want),
+                      f"K6' {w}x{h} {label}: not equal to its twin (per-row max rel err {err})")
                 cases.append({"size": f"{w}x{h}", "case": label, "instances": pb.num_instances,
                               "max_rel_err": err, "max_abs_err": float((got - want).abs().max()),
                               "bitwise_equal": bool(torch.equal(got, want))})
@@ -1183,11 +1191,35 @@ OIT_FWD_OPS_PER_KEPT = 18
 OIT_BWD_OPS_PER_KEPT = 55
 
 
+def oit_walked_pairs(args, fwd=None, dout=None):
+    """The (pixel, instance) pairs K5' walks on a frame (32 per (warp,
+    instance) its cull lets through) and its culled share of the twin's
+    evaluated pairs, from `blend_oit_culled_torch`, whose sums must equal
+    the twin's bit for bit; with the backward's inputs, K6''s walked pairs
+    (each instance's box pixels in its tile, narrowed to each row's span) from
+    `blend_oit_bwd_walked_torch`, whose rows must equal the twin's."""
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+
+    inst_t, starts, ends = args[:3]
+    evaluated = int((ends - starts).sum()) * 256
+    culled, walked = rc.blend_oit_culled_torch(*args)
+    check(torch.equal(culled, rc.blend_oit_packed_torch(*args)),
+          "blend_oit_culled_torch differs from blend_oit_packed_torch: the cull skips a kept pair")
+    out = {"walked_pairs": walked, "culled_share": 1.0 - walked / max(evaluated, 1)}
+    if fwd is not None:
+        boxed, walked_bwd = rc.blend_oit_bwd_walked_torch(*args, fwd, dout)
+        check(torch.equal(boxed, rc.blend_oit_bwd_packed_torch(*args, fwd, dout)),
+              "blend_oit_bwd_walked_torch differs from its twin: the walk skips a kept pair")
+        out = {"walked_pairs": walked_bwd, "culled_share": 1.0 - walked_bwd / max(evaluated, 1),
+               "k5_walked_pairs": walked}
+    return out
+
+
 def phase_oit_render(device):
     """The full-width render in OIT mode through `render` (float32 packets),
-    then a stage split and K5''s row: K5' against its twin on 64 seeded
-    tiles (the twin on the whole frame gives its time and the evaluated and
-    kept pair counts)."""
+    then a stage split and K5''s row: K5' equal to its twin on the whole
+    frame (`torch.equal`), the twin's time and its evaluated and kept pair
+    counts, K5''s walked pairs and culled share."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
@@ -1270,9 +1302,9 @@ def phase_oit_render(device):
     sel = torch.as_tensor(np.random.default_rng(0).choice(num_tiles, CHECK_TILES, replace=False),
                           device=device)
     nd_rel, t_err = oit_errors(raw[sel], plain[sel])
-    check(nd_rel < OIT_REL and t_err <= ATOL,
-          f"K5' on 64 frame tiles: N/D rel err {nd_rel}, T abs err {t_err}")
+    check(torch.equal(raw, plain), "K5' on the OIT render frame: not equal to its twin")
     full_nd, full_t = oit_errors(raw, plain)
+    walked = oit_walked_pairs(args)
     k5_ms = cuda_time(lambda: rc.blend_oit_fwd(*args), 20)
     k = pb.num_instances
     # K5': 10 table rows per instance + 2 ranges per tile in; (T, 256, 8) out
@@ -1280,7 +1312,7 @@ def phase_oit_render(device):
                      evaluated * BLEND_OPS_PER_PAIR + kept * OIT_FWD_OPS_PER_KEPT)
     summary = {
         "gaussians": FULL["n"], "size": f"{FULL['width']}x{FULL['height']}", "instances": k,
-        "evaluated_pairs": evaluated, "kept_pairs": kept, "setup_s": setup_s,
+        "evaluated_pairs": evaluated, "kept_pairs": kept, **walked, "setup_s": setup_s,
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "frames_in_turns_ms_median": {m: statistics.median(v) for m, v in turns.items()},
         "device_profile": profile,
@@ -1289,8 +1321,9 @@ def phase_oit_render(device):
         "k5_full_frame": {"nd_max_rel_err": full_nd, "t_max_abs_err": full_t,
                           "bitwise_equal": bool(torch.equal(raw, plain))},
     }
-    row = measured(k5_ms, plain_ms, k5_bound, float((raw[sel] - plain[sel]).abs().max()), nd_rel,
-                   evaluated_pairs=evaluated, kept_pairs=kept, t_max_abs_err=t_err)
+    row = measured(k5_ms, plain_ms, k5_bound, float((raw - plain).abs().max()), full_nd,
+                   evaluated_pairs=evaluated, kept_pairs=kept, **walked, t_max_abs_err=full_t,
+                   bitwise_equal=bool(torch.equal(raw, plain)))
     return summary, {"oit_fwd": row}
 
 
@@ -1648,10 +1681,10 @@ def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
 
 
 def kernel_rows_oit_train(k6_args):
-    """K6' on the inputs one OIT train step gave it: against its twin on the
-    whole frame (per-row max relative error below 1e-5; the twin's one call
-    is timed), its time and its bound from the frame's evaluated and kept
-    pairs."""
+    """K6' on the inputs one OIT train step gave it: equal to its twin on the
+    whole frame (`torch.equal`; the twin's one call is timed), and the
+    step's K5' output equal to K5''s twin; its time, its bound from the
+    frame's evaluated and kept pairs, its walked pairs and culled share."""
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
 
     inst_t, starts, ends, gx, gy, fwd, dout = k6_args
@@ -1663,15 +1696,20 @@ def kernel_rows_oit_train(k6_args):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     rel = per_row_rel_err(got, want)
-    check(rel < ROW_REL, f"K6' on the OIT train frame: per-row max rel err {rel}")
-    _, evaluated, kept = rc.blend_oit_packed_torch(inst_t, starts, ends, gx, gy, count_pairs=True)
+    check(torch.equal(got, want), f"K6' on the OIT train frame: not equal to its twin "
+          f"(per-row max rel err {rel})")
+    fwd_plain, evaluated, kept = rc.blend_oit_packed_torch(inst_t, starts, ends, gx, gy,
+                                                           count_pairs=True)
+    check(torch.equal(k6_args[5], fwd_plain),
+          "K5' on the OIT train frame: not equal to its twin")
+    walked = oit_walked_pairs(k6_args[:5], *k6_args[5:])
     ms = cuda_time(lambda: rc.blend_oit_bwd(*k6_args), 20)
     # K6': 10 table rows per instance + 2 ranges per tile + T_final and the
     # cotangents of N0..3, D and T per pixel in; 10 rows per instance out
     bnd = bound(k * 40 + num_tiles * 8 + num_tiles * 256 * 28 + k * 40,
                 evaluated * BLEND_OPS_PER_PAIR + kept * OIT_BWD_OPS_PER_KEPT)
     return {"oit_bwd": measured(ms, plain_ms, bnd, float((got - want).abs().max()), rel,
-                                evaluated_pairs=evaluated, kept_pairs=kept,
+                                evaluated_pairs=evaluated, kept_pairs=kept, **walked,
                                 bitwise_equal=bool(torch.equal(got, want)))}
 
 
@@ -2781,9 +2819,61 @@ def phase_quality_fixture(device):
         cull = cp.cull_report(model_dir, scene_dir, n_it, DEVICE)
         for dtype in ("float32", "hybrid"):
             cull[dtype] = cull_summary(cull[dtype], f"quality run, {dtype} packets")
+        oit = oit_trained_frame(model_dir, scene_dir, n_it)
     return {"iterations": n_it, "run_s": run_s, "summary": row, "self_consistency": self_err,
             "psnr_bar": QUALITY_PSNR_BAR, "trained_cloud": trained, "cull": cull,
-            "launches": launches}
+            "oit_trained_frame": oit, "launches": launches}
+
+
+def oit_trained_frame(model_dir, scene_dir, iteration):
+    """K5' and K6' on a trained state: the quality run's snapshot at
+    `iteration` on the first held-out view, rendered in OIT mode and
+    differentiated (the L1 loss to the view's ground truth through the OIT
+    composite gives K6''s cotangent), with float32 and hybrid packets. Each
+    kernel `torch.equal` to its twin; the evaluated, kept and walked pairs
+    and the culled shares. These launches compare and are not counted on
+    any path."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.data.scene import load_scene
+    from gsplat_tpu_torch.io.snapshot import load_snapshot
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops.binning import pack_bins
+    from gsplat_tpu_torch.ops.projection import preprocess
+    from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
+    from gsplat_tpu_torch.render import grid_dims
+
+    params, alive, _, _ = load_snapshot(model_dir, iteration, device=DEVICE)
+    holder = load_scene(scene_dir, DEVICE, eval=True).get_test_cameras()[0]
+    cam = holder.camera
+    settings = make_render_settings(sh_degree=3, blend_mode="oit")
+    gx, gy = grid_dims(cam, 16)
+    gt = torch.as_tensor(holder.image, device=DEVICE)
+    out = {"view": holder.image_name, "n_gauss": int(alive.sum())}
+    with torch.no_grad():
+        screen = preprocess(params, alive, cam, settings, gx, gy)
+    for dtype in ("float32", "hybrid"):
+        pb = pack_bins(screen, gx, gy, settings.tile, settings.tight_cull, packet_dtype=dtype)
+        args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
+        fwd = rc.blend_oit_fwd(*args)
+        plain, evaluated, kept = rc.blend_oit_packed_torch(*args, count_pairs=True)
+        check(torch.equal(fwd, plain), f"K5' on the trained OIT frame ({dtype}): not equal to "
+              "its twin")
+        raw = fwd.clone().requires_grad_(True)
+        w = (1.0 - raw[:, :, 5]) / torch.clamp(raw[:, :, 4], min=1e-8)
+        image = tiles_to_image(raw[:, :, 0:3] * w[..., None], gx, gy, 16, cam.width, cam.height)
+        (dout,) = torch.autograd.grad(torch.abs(image - gt).mean(), raw)
+        got = rc.blend_oit_bwd(*args, fwd, dout)
+        want = rc.blend_oit_bwd_packed_torch(*args, fwd, dout)
+        check(torch.equal(got, want), f"K6' on the trained OIT frame ({dtype}): not equal to "
+              f"its twin (per-row max rel err {per_row_rel_err(got, want)})")
+        check(bool(got.any()), f"K6' on the trained OIT frame ({dtype}): all rows zero")
+        walked = oit_walked_pairs(args, fwd, dout)
+        out[dtype] = {"instances": pb.num_instances, "evaluated_pairs": evaluated,
+                      "kept_pairs": kept, "k5_walked_pairs": walked["k5_walked_pairs"],
+                      "k5_culled_share": 1.0 - walked["k5_walked_pairs"] / max(evaluated, 1),
+                      "k6_walked_pairs": walked["walked_pairs"],
+                      "k6_culled_share": walked["culled_share"]}
+    return out
 
 
 # the multi-device phases: meshes of ranks that share the one card over gloo

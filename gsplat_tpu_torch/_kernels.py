@@ -60,7 +60,7 @@ _SIGNATURES = {
     },
     "rasterize_oit": {
         "gs_oit_fwd": (_P, _LL, _P, _P, _I, _I, _P, _P),
-        "gs_oit_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P),
+        "gs_oit_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     },
     "probe_skeleton": {
         "gs_skel_fwd": (_P, _LL, _P, _P, _I, _P, _P),

@@ -151,6 +151,31 @@ __device__ __forceinline__ bool reaches(
     return q <= tau;
 }
 
+// `row_span` narrows a finite box to one pixel row py: the pixels px in
+// [x0, x1] of that row at which the keep test can keep the instance (K6'
+// walks only those). For a kept pair the conic's value q = a'dx^2 + b'dx dy
+// + c'dy^2 is at most tau_m (the argument above), so at the row's dy, dx
+// lies within sqrt(4a'tau_m - det dy^2) / 2a' of its centre -b'dy / 2a'.
+// The discriminant's first term is widened by 1/1024 (it cancels near the
+// row at the ellipse's tip), and the half-width h by the box's own padding,
+// 1 + sqrt(h^2 + 4 + h^2/16). Only for a finite box (`pixel_box`: its
+// conic is positive definite and short of DEGENERATE, its tau_m finite).
+// Plain twin: `ops/rasterize_cuda.py:row_span_torch`.
+__device__ __forceinline__ void row_span(
+    float mx, float my, float ca, float cb, float cc, float tau, float py,
+    float& x0, float& x1)
+{
+    const float a = -ca, b = -cb, c = -cc;
+    const float dy = my - py;
+    const float det = 4.0f * a * c - b * b;
+    const float disc = (4.0f * a * tau) * 1.0009765625f - det * (dy * dy);
+    const float h = sqrtf(fmaxf(disc, 0.0f)) / (a + a);
+    const float r = 1.0f + sqrtf((h * h + 4.0f) + 0.0625f * (h * h));
+    const float xc = mx + (b * dy) / (a + a);
+    x0 = xc - r;
+    x1 = xc + r;
+}
+
 // Which pixels a warp owns: a WARP_W x WARP_H block of the tile (8 x 4:
 // eight blocks in two columns of four). `warp_pixel` is the pixel index
 // (row-major in the tile) of a lane, `warp_rect` the warp's pixel

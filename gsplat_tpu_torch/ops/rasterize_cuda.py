@@ -84,7 +84,9 @@ def pair_keep_torch(mx, my, ca, cb, cc, op, px, py):
 
 
 def _box_and_tau(inst_t):
-    """`gs::pixel_box`: the (4, K) box and the margin-padded tau_m (K,)."""
+    """`gs::pixel_box`: the (4, K) box, the margin-padded tau_m (K,) and
+    where the box is the finite case (K,) bool, where `gs::pixel_box`
+    returns tau_m (elsewhere it returns +-inf)."""
     mx, my, ca, cb, cc, op = inst_t[:6]
     finite = torch.isfinite(inst_t[:6]).all(dim=0)
     ln = torch.log(255.0 * op)
@@ -102,7 +104,7 @@ def _box_and_tau(inst_t):
     whole = torch.tensor([-inf, inf, -inf, inf], device=inst_t.device)[:, None]
     empty = finite & (~(op > 0.0) | (tau < 0.0))
     box = torch.where(empty, -whole, box)
-    return torch.where(~finite | (~empty & ~pd), whole, box), tau
+    return torch.where(~finite | (~empty & ~pd), whole, box), tau, finite & ~empty & pd
 
 
 def pixel_box_torch(inst_t: torch.Tensor) -> torch.Tensor:
@@ -125,6 +127,21 @@ def _edge_min(u, v0, v1, p, q, r):
     return (p * u * u + r * v * v) + q * u * v
 
 
+def row_span_torch(mx, my, ca, cb, cc, tau, py):
+    """Plain twin of `gs::row_span` on broadcastable tensors: (x0, x1), the
+    pixels of row `py` at which the keep test can keep an instance whose
+    box is finite (`gs::pixel_box`'s tau_m `tau`), the same arithmetic in
+    the same order."""
+    a, b, c = -ca, -cb, -cc
+    dy = my - py
+    det = 4.0 * a * c - b * b
+    disc = (4.0 * a * tau) * 1.0009765625 - det * (dy * dy)
+    h = torch.sqrt(torch.fmax(disc, torch.zeros_like(disc))) / (a + a)  # fmaxf: NaN -> 0
+    r = 1.0 + torch.sqrt((h * h + 4.0) + 0.0625 * (h * h))
+    xc = mx + (b * dy) / (a + a)
+    return xc - r, xc + r
+
+
 def warp_reaches_torch(inst_t: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
     """Plain twin of `gs::reaches`: (n, W) bool, whether the warps of
     rectangles `rects` (n, W, 4) walk the instances `inst_t` (>= 6, n):
@@ -132,7 +149,7 @@ def warp_reaches_torch(inst_t: torch.Tensor, rects: torch.Tensor) -> torch.Tenso
     conic's minimum over the rectangle widened by 1/16 px is at most tau_m.
     Every pixel where the keep test keeps an instance lies in a warp that
     reaches it (`cull_stats_torch` checks that on a frame)."""
-    box, tau = _box_and_tau(inst_t)
+    box, tau, _ = _box_and_tau(inst_t)
     x0, x1, y0, y1 = (v[:, None] for v in box)
     meets = ((x0 <= rects[..., 1]) & (x1 >= rects[..., 0])
              & (y0 <= rects[..., 3]) & (y1 >= rects[..., 2]))
@@ -218,6 +235,90 @@ def cull_stats_torch(inst_t, tile_start, tile_end, grid_x, grid_y, chunk=1 << 16
             "whole_plane_degenerate": whole - nonfinite,
             "whole_plane_share": whole / max(n, 1),
             "culled_share": {name: c / max(n * WARPS, 1) for name, c in culled.items()}}
+
+
+def blend_oit_culled_torch(inst_t, tile_start, tile_end, grid_x, grid_y):
+    """K5''s walk in plain torch: `blend_oit_packed_torch`'s sums, each
+    pixel adding a pair only where its warp walks the instance
+    (`warp_reaches_torch`, 8x4 blocks), in the same order. Bit for bit the
+    twin's output when the cull skips no kept pair. Returns (out, walked
+    pairs: 32 per (warp, instance) the cull lets through)."""
+    dev = inst_t.device
+    num_tiles = grid_x * grid_y
+    pix = tile_pixel_coords(grid_x, grid_y, 16, dev)
+    px, py = pix[..., 0], pix[..., 1]
+    start = tile_start.long()
+    length = (tile_end - tile_start).long()
+    k = inst_t.shape[1]
+    warp_of = pixel_warps(device=dev)
+    rects = warp_rects_torch(torch.arange(num_tiles, device=dev), grid_x)
+    sums = torch.zeros((num_tiles, PPT, 6), dtype=torch.float32, device=dev)
+    walked = 0
+    for j in range(int(length.max()) if num_tiles else 0):
+        col = inst_t[:10, torch.clamp(start + j, max=max(k - 1, 0))]
+        reach = warp_reaches_torch(col, rects) & (j < length)[:, None]  # (T, 8)
+        walked += 32 * int(reach.sum())
+        mx, my, ca, cb, cc, op, r, g, b, iz = (v[:, None] for v in col)
+        alpha, kept = pair_keep_torch(mx, my, ca, cb, cc, op, px, py)[4:]
+        keep = reach[:, warp_of] & kept
+        aw = alpha * (iz * iz)
+        terms = torch.stack([aw * r, aw * g, aw * b, aw * iz, aw, torch.log1p(-alpha)], dim=-1)
+        sums = torch.where(keep[..., None], sums + terms, sums)
+    out = torch.zeros((num_tiles, PPT, 8), dtype=torch.float32, device=dev)
+    out[..., 0:5] = sums[..., 0:5]
+    out[..., 5] = torch.exp(sums[..., 5])
+    return out, walked
+
+
+def blend_oit_bwd_walked_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
+    """K6''s walk in plain torch: `blend_oit_bwd_packed_torch`'s rows, each
+    instance walking only the pixels of its tile inside its
+    `pixel_box_torch` box and, where the box is finite, inside each row's
+    `row_span_torch`, in the same row-major order. Bit for bit the twin's
+    rows when the walk skips no kept pair. Returns (rows, walked pairs)."""
+    dev = inst_t.device
+    num_tiles = grid_x * grid_y
+    length = (tile_end - tile_start).long()
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), length)
+    first = torch.cumsum(length, 0) - length
+    slot = tile_start.long()[tile_of] + (torch.arange(tile_of.shape[0], device=dev) - first[tile_of])
+    tx = (tile_of % grid_x) * 16
+    ty = torch.div(tile_of, grid_x, rounding_mode="floor") * 16
+    col = inst_t[:10, slot]
+    (x0, x1, y0, y1), tau, spans = _box_and_tau(col)
+    mx, my, ca, cb, cc, op, r, gr, b, z = col
+    z2 = z * z
+    d = dout.reshape(num_tiles, PPT, 8)
+    cot = torch.cat([d[..., 0:5], (d[..., 5] * fwd.reshape(num_tiles, PPT, 8)[..., 5])[..., None]],
+                    dim=-1)
+    acc = torch.zeros((11, slot.shape[0]), dtype=torch.float32, device=dev)
+    walked = 0
+    for p in range(PPT):
+        px = (tx + p % 16).to(torch.float32)
+        py = (ty + p // 16).to(torch.float32)
+        sx0, sx1 = row_span_torch(mx, my, ca, cb, cc, tau, py)
+        # torch.fmax/fmin pass the box's edge where the span is NaN, as
+        # fmaxf/fminf do
+        lo = torch.where(spans, torch.fmax(sx0, x0), x0)
+        hi = torch.where(spans, torch.fmin(sx1, x1), x1)
+        inside = (px >= lo) & (px <= hi) & (py >= y0) & (py <= y1)
+        walked += int(inside.sum())
+        dx, dy, power, g, alpha, kept = pair_keep_torch(mx, my, ca, cb, cc, op, px, py)
+        dn0, dn1, dn2, dn3, dd, rt = cot[tile_of, p].T
+        kk = (((dn0 * r + dn1 * gr) + dn2 * b) + dn3 * z) + dd
+        dalpha = z2 * kk - rt * (1.0 / (1.0 - alpha))
+        dgm = (op * dalpha) * g
+        terms = torch.stack([
+            dgm * ((ca + ca) * dx + cb * dy), dgm * ((cc + cc) * dy + cb * dx),
+            -0.5 * (dgm * dx * dx), -(dgm * dx * dy), -0.5 * (dgm * dy * dy), g * dalpha,
+            alpha * dn0, alpha * dn1, alpha * dn2, alpha * dn3, alpha * kk,
+        ])
+        acc = torch.where(inside & kept, acc + terms, acc)
+    dinst = torch.zeros((10, inst_t.shape[1]), dtype=torch.float32, device=dev)
+    dinst[0:6, slot] = acc[0:6]
+    dinst[6:9, slot] = z2 * acc[6:9]
+    dinst[9, slot] = (z + z) * acc[10] + z2 * acc[9]
+    return dinst, walked
 
 
 def blend_packed_torch(
@@ -595,7 +696,7 @@ def blend_oit_bwd_packed_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd
 
 def blend_oit_bwd(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
     """Kernel K6' on the card: same contract as `blend_oit_bwd_packed_torch`,
-    for ranges that cover every slot. CUDA tensors only."""
+    for ranges that are disjoint and cover every slot. CUDA tensors only."""
     from gsplat_tpu_torch import _kernels
 
     inst_t, tile_start, tile_end, fwd, dout = _kernel_inputs(
@@ -604,11 +705,19 @@ def blend_oit_bwd(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
     dinst = torch.empty((10, k), dtype=torch.float32, device=inst_t.device)
     if k == 0:
         return dinst
+    if dout.data_ptr() % 16:  # K6' stages each pixel's cotangent as two float4
+        dout = dout.clone()
+    num_tiles = grid_x * grid_y
+    # scratch: each pass's first block per tile, each chunk's order and
+    # each slot's walk (16 bytes)
+    plan = torch.empty(2 * (num_tiles + 1), dtype=torch.int32, device=inst_t.device)
+    perm = torch.empty(k, dtype=torch.int32, device=inst_t.device)
+    walks = torch.empty((k, 4), dtype=torch.int32, device=inst_t.device)
     lib = _kernels.load("rasterize_oit")
     err = lib.gs_oit_bwd(
-        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), grid_x * grid_y,
-        grid_x, fwd.data_ptr(), dout.data_ptr(), dinst.data_ptr(),
-        _kernels.stream(inst_t.device),
+        inst_t.data_ptr(), k, tile_start.data_ptr(), tile_end.data_ptr(), num_tiles,
+        grid_x, plan.data_ptr(), perm.data_ptr(), walks.data_ptr(), fwd.data_ptr(),
+        dout.data_ptr(), dinst.data_ptr(), _kernels.stream(inst_t.device),
     )
     _kernels.check(err, "blend_oit_bwd")
     blend_oit_bwd.launches += 1
