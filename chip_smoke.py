@@ -19,7 +19,29 @@ JSON line per phase:
    reduce-scatter (its registers and `SHFL` count go on the kernels line);
    K1' and K4' touch no local memory, and K4' holds three global
    reductions per instance in each instantiation, every one a vector form
-   (their whole mnemonics, `.FTZ` or not, go on the kernels line);
+   (their whole mnemonics, `.FTZ` or not, go on the kernels line); the
+   projection kernels' registers, stack and local memory per
+   instantiation (a spill is recorded, not refused);
+   then `projection`: the projection forward (`project_fwd`) and backward
+   (`project_bwd`) against their twins `preprocess_torch` and
+   `preprocess_bwd_torch`: the forward bit for bit on every field of the
+   live rows (zeros on dead ones, whose parameters the kernel never
+   reads), the backward bit for bit (int32 views) and within per-row
+   relative 1e-5 of autograd of the forward twin (a row: one gradient
+   component over the gaussians where float32 autograd is itself within
+   1e-5 of float64 autograd; non-finite entries must coincide), the
+   backward twin's arithmetic run in float64 within per-row 1e-5 of
+   float64 autograd on every live row (the rows left out before included), with
+   seeded cotangents laid out as the blend hands them over (strided views
+   of an (N, 16) accumulator); on the seeded 65,536-gaussian scene at
+   640x480 (every 7th row dead) at SH degree 0-4, antialiasing and tight
+   cull on and off, on `projection_edge_table` (view z at and just above 0.2,
+   centres past the 1.3 tan_fov clamp, 2D determinants of exactly 0, op
+   x 255 at 1 and at the tight cull's 0.999999, SH colours of exactly 0
+   and just below, rect edges on tile borders; each edge's live rows
+   counted and required), and on the flagship render frame, timed there
+   beside the twins and the byte bound (the train frame is checked and
+   timed on the train step's own inputs in 14);
 3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
@@ -74,8 +96,14 @@ JSON line per phase:
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
-   just after (K1', K2', K3' and K4' once per step), the loss falling, no
-   NaN; a stage split, the busy share, peak memory; K3', K4', the expand
+   just after (the projection forward and backward, K1', K2', K3' and K4'
+   once per step; every path below also projects once per frame, step,
+   evaluation view, viewer request and mesh rank-step), the loss falling,
+   no NaN; a stage split (the projection's forward and backward kernels
+   apart), the busy share and kernels per step, peak memory; the
+   projection kernels on the step's own inputs (2,097,152 rows, half
+   dead, the offset, the blend's cotangents) against their twins and
+   autograd, and timed; K3', K4', the expand
    (2,097,152 rows, half dead) and the hybrid pack against their twins at
    the train frame's shapes and timed there (K4' also at the live rows'
    N, and the zeroing of its accumulator alone), none under its bound;
@@ -166,7 +194,11 @@ JSON line per phase:
    trained cloud on that view in OIT mode, float32 and hybrid packets,
    with the L1 loss's cotangent through the OIT composite: K5' and K6'
    each `torch.equal` to its twin, their walked pairs and culled shares
-   (`oit_trained_frame`);
+   (`oit_trained_frame`); and the projection backward on the snapshot,
+   every train view differentiated as the train step does (`plain_projection.
+   snapshot_check`): the kernel bit for bit its twin, and its gradients no
+   further from float64 autograd than PROJ_TRAINED_FACTOR times float32
+   autograd's distance (`projection_trained_state`);
    `multi_device`: the flagship train state (1,048,576 gaussians in
    2,097,152 rows, 1920x1080, hybrid) on meshes of ranks that share the
    card over gloo (spawned processes; gloo copies each collective's CUDA
@@ -295,7 +327,7 @@ def cuda_time(fn, reps):
 # the port's kernel functions on the paths, as the profiler names them
 PATH_KERNEL_FUNCS = ("expand_instances_kernel", "pack_instances_kernel", "blend_fwd_kernel",
                      "blend_bwd_kernel", "reduce_by_gid_kernel", "oit_fwd_kernel",
-                     "oit_bwd_kernel")
+                     "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel")
 
 
 def device_profile(frame, frames=3, top=10):
@@ -335,11 +367,13 @@ def device_profile(frame, frames=3, top=10):
 def all_kernels():
     """The wrappers whose launches the script counts, by kernel row name."""
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
     from gsplat_tpu_torch.probes import ablate, bf16_rate, op_rate
 
-    return {"expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
+    return {"project_fwd": pj.project_fwd, "project_bwd": pj.project_bwd,
+            "expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
             "reduce_by_gid": rd.reduce_by_gid_cuda,
             "oit_fwd": rc.blend_oit_fwd, "oit_bwd": rc.blend_oit_bwd,
@@ -379,16 +413,17 @@ def read_counts():
     return counts
 
 
-# the kernels each path launches once per frame or step: serving packs
-# float32 packets and has no backward; training packs hybrid ones; the OIT
-# paths blend with K5' (and K6') in place of K2' (and K3')
-RENDER_KERNELS = ("expand_instances", "pack_instances", "blend_fwd")
-TRAIN_KERNELS = ("expand_instances", "pack_instances_hybrid", "blend_fwd", "blend_bwd",
-                 "reduce_by_gid")
-OIT_RENDER_KERNELS = ("expand_instances", "pack_instances", "oit_fwd")
-OIT_TRAIN_KERNELS = ("expand_instances", "pack_instances_hybrid", "oit_fwd", "oit_bwd",
-                     "reduce_by_gid")
-BF16_RENDER_KERNELS = ("expand_instances", "pack_instances_bf16", "blend_fwd")
+# the kernels each path launches once per frame or step: every path
+# projects (the projection forward, and its backward in training); serving
+# packs float32 packets and has no backward; training packs hybrid ones; the
+# OIT paths blend with K5' (and K6') in place of K2' (and K3')
+RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "blend_fwd")
+TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "blend_fwd",
+                 "blend_bwd", "reduce_by_gid", "project_bwd")
+OIT_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "oit_fwd")
+OIT_TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "oit_fwd",
+                     "oit_bwd", "reduce_by_gid", "project_bwd")
+BF16_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances_bf16", "blend_fwd")
 
 
 def check_counts(counts, path_kernels, n, what):
@@ -1042,6 +1077,310 @@ def cull_summary(stats, what):
     return stats
 
 
+# --- the projection kernels (`csrc/projection.cu`), forward and backward
+
+# the backward kernel's distance from float64 autograd on a trained state,
+# at most this many times float32 autograd's: both are float32 orders of
+# one sum, within 1.45x of each other on 112 trained views (a gradient
+# fault is off by orders of magnitude)
+PROJ_TRAINED_FACTOR = 4.0
+PROJ_SCENE_DEGREE = 4  # the seeded scene's features hold degree 4; each case uses 0-4
+PROJ_DEAD_EVERY = 7
+PROJ_EDGE_EACH = 256  # rows per kind of edge
+PROJ_INPUTS = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
+PROJ_GRADS = PROJ_INPUTS + ("mean2d_offset",)
+
+
+def proj_params(params):
+    """The six parameter tensors of a model or state, as the kernels take
+    them."""
+    from types import SimpleNamespace
+
+    get = params.get if isinstance(params, dict) else lambda k: getattr(params, k)
+    return SimpleNamespace(**{k: get(k).detach() for k in PROJ_INPUTS})
+
+
+def proj_cotangents(n, device, seed):
+    """Seeded cotangents of the five differentiable outputs, laid out as the
+    blend hands them over: mean2d, conic, opacity and rgb as strided views
+    of one (N, 16) accumulator (K4''s), depth contiguous."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randn((n, 16), generator=gen, device=device)
+    depth = torch.randn((n,), generator=gen, device=device)
+    return acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:9], depth
+
+
+def proj_row_diff(a, b):
+    """Rows where `a` and `b` differ in any bit (float32 through int32 views,
+    so NaN compares)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    d = a != b
+    return d if d.dim() == 1 else d.reshape(d.shape[0], -1).any(dim=1)
+
+
+def proj_fwd_mismatch(got, want, alive):
+    """Rows where the forward kernel's screen is not the twin's, by field:
+    every field bit for bit on the live rows; on a dead row the kernel
+    writes zeros (it never reads the row's parameters), which for mask,
+    radius and tiles_touched are also the twin's values."""
+    bad = {}
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        check(a.shape == b.shape and a.dtype == b.dtype, f"project_fwd: {f.name} shape/dtype")
+        rows = proj_row_diff(a, b) & alive
+        dead_nonzero = proj_row_diff(a, torch.zeros_like(a)) & ~alive
+        if f.name in ("mask", "radius", "tiles_touched"):
+            dead_nonzero |= proj_row_diff(b, torch.zeros_like(b)) & ~alive
+        bad[f.name] = int((rows | dead_nonzero).sum())
+    return bad
+
+
+def proj_cols(t, rows):
+    return t[rows].reshape(int(rows.sum()), -1)
+
+
+def proj_reference_rows(ag32, ag64, live):
+    """The live rows where float32 autograd is itself a reference: each of
+    its finite gradient entries within ROW_REL of float64 autograd, relative
+    to that component's largest magnitude over the live rows. Elsewhere the
+    gradient is rounding noise in float32, whatever computes it (splats whose
+    dilated 2D determinant cancels to a few ulps under antialiasing)."""
+    ok = live.clone()
+    for a, b in zip(ag32, ag64):
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1).float()
+        scale = proj_cols(b, live).abs().amax(dim=0) if int(live.sum()) else b.new_zeros(b.shape[1])
+        off = (a - b).abs() > ROW_REL * scale
+        ok &= ~(off & torch.isfinite(a)).any(dim=1)
+    return ok
+
+
+def proj_grad_rel(got, want, live, ref_rows):
+    """The backward against autograd of the forward twin: the entries that
+    are not finite must be so in both on every live row (their count is
+    returned); on the reference rows, the largest per-row relative error, a
+    row being one gradient component over those gaussians (K3''s
+    convention), over the finite entries."""
+    worst, nonfinite = 0.0, 0
+    for g, w in zip(got, want):
+        gl, wl = proj_cols(g, live), proj_cols(w, live)
+        check(torch.equal(torch.isnan(gl), torch.isnan(wl))
+              and torch.equal(torch.isposinf(gl), torch.isposinf(wl))
+              and torch.equal(torch.isneginf(gl), torch.isneginf(wl)),
+              "project_bwd: non-finite entries differ from autograd's")
+        nonfinite += int((~torch.isfinite(gl)).sum())
+        g, w = proj_cols(g, ref_rows), proj_cols(w, ref_rows)
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        g, w = torch.where(fin, g, 0.0), torch.where(fin, w, 0.0)
+        if g.numel():
+            worst = max(worst, per_row_rel_err(g.T, w.T))
+    return worst, nonfinite
+
+
+def proj_camera_as(camera, dtype):
+    return dataclasses.replace(camera, **{f: getattr(camera, f).to(dtype) for f in (
+        "world_view", "full_proj", "camera_center", "tan_fovx", "tan_fovy")})
+
+
+def proj_float64(params, camera, cot):
+    """`params`, `camera` and the cotangents in float64."""
+    from types import SimpleNamespace
+
+    return (SimpleNamespace(**{k: getattr(params, k).double() for k in PROJ_INPUTS}),
+            proj_camera_as(camera, torch.float64), [c.double() for c in cot])
+
+
+def proj_autograd(params, alive, camera, settings, gx, gy, cot, offset=None,
+                  dtype=torch.float32):
+    """Autograd of the forward twin on the same inputs, in `dtype`."""
+    from types import SimpleNamespace
+
+    from gsplat_tpu_torch.ops.projection import preprocess_torch
+
+    leaves = SimpleNamespace(**{k: getattr(params, k).detach().to(dtype).requires_grad_(True)
+                                for k in PROJ_INPUTS})
+    off = (torch.zeros((alive.shape[0], 2), device=alive.device) if offset is None
+           else offset.detach()).to(dtype).requires_grad_(True)
+    cam = proj_camera_as(camera, dtype)
+    with torch.enable_grad():
+        s = preprocess_torch(leaves, alive, cam, settings, gx, gy, off)
+        return torch.autograd.grad((s.mean2d, s.conic, s.opacity, s.rgb, s.depth),
+                                   [getattr(leaves, k) for k in PROJ_INPUTS] + [off],
+                                   [c.to(dtype) for c in cot])
+
+
+def proj_check(what, params, alive, camera, settings, gx, gy, cot, backward=True, offset=None):
+    """One case: the forward kernel against its twin, and (with `backward`)
+    the backward kernel against its twin bit for bit and against autograd
+    of the forward twin. Returns the case's numbers."""
+    from gsplat_tpu_torch.ops import projection as pj
+
+    with torch.no_grad():
+        got = pj.project_fwd(params, alive, camera, settings, gx, gy, offset)
+        want = pj.preprocess_torch(params, alive, camera, settings, gx, gy, offset)
+    bad = proj_fwd_mismatch(got, want, alive)
+    check(not any(bad.values()), f"project_fwd {what}: rows differing from the twin {bad}")
+    out = {"rows": int(alive.shape[0]), "live": int(alive.sum()), "visible": int(got.mask.sum())}
+    if not backward:
+        return out
+    with torch.no_grad():
+        kg = pj.project_bwd(params, alive, camera, settings, cot)
+        tg = pj.preprocess_bwd_torch(params, alive, camera, settings, cot)
+    differ = {n: int(proj_row_diff(a, b).sum()) for n, a, b in zip(PROJ_GRADS, kg, tg)}
+    check(not any(differ.values()), f"project_bwd {what}: rows differing from the twin {differ}")
+    ag = proj_autograd(params, alive, camera, settings, gx, gy, cot, offset)
+    ag64 = proj_autograd(params, alive, camera, settings, gx, gy, cot, offset, torch.float64)
+    ref_rows = proj_reference_rows(ag, ag64, alive)
+    rel, nonfinite = proj_grad_rel(kg, ag, alive, ref_rows)
+    check(rel <= ROW_REL, f"project_bwd {what}: per-row max rel err {rel} against autograd")
+    # every live row, those left out above included: the backward's
+    # arithmetic (the twin's code, which the kernel equals bit for bit) in
+    # float64 against float64 autograd
+    with torch.no_grad():
+        p64, cam64, cot64 = proj_float64(params, camera, cot)
+        tg64 = pj.preprocess_bwd_torch(p64, alive, cam64, settings, cot64)
+    rel64, _ = proj_grad_rel(tg64, ag64, alive, alive)
+    check(rel64 <= ROW_REL, f"preprocess_bwd_torch {what}: in float64, per-row max rel err "
+          f"{rel64} against float64 autograd")
+    return {**out, "bwd_rel_err_vs_autograd": rel, "nonfinite_grad_entries": nonfinite,
+            "rows_where_float32_autograd_misses_float64": int((alive & ~ref_rows).sum()),
+            "bwd_twin_float64_rel_err_vs_float64_autograd": rel64}
+
+
+def proj_edge_coverage(params, alive, camera, gx, gy, kind):
+    """How many live rows of each kind sit on their edge, read off the
+    forward twin (degree 3, no antialiasing, tight cull); every count must
+    be positive, so the table exercises what it claims."""
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops.projection import preprocess_torch
+    from gsplat_tpu_torch.synthetic import PROJECTION_EDGE_KINDS
+
+    settings = make_render_settings(sh_degree=3)
+    with torch.no_grad():
+        s = preprocess_torch(params, alive, camera, settings, gx, gy)
+    kind_t = torch.as_tensor(kind, device=alive.device)
+    live = {i: alive & (kind_t == i) for i in range(len(PROJECTION_EDGE_KINDS))}
+    ndc_x = (2 * s.mean2d[:, 0].double() + 1) / camera.width - 1
+    ndc_y = (2 * s.mean2d[:, 1].double() + 1) / camera.height - 1
+    c = s.conic
+    det_zero = (c[:, 0] * c[:, 2] - c[:, 1] * c[:, 1] == 0) & (s.depth > 0.2) & ~s.mask
+    op255 = s.opacity * 255.0
+    colour = params.features_dc[:, 0].cpu().numpy() * np.float32(sh_lib.SH_C0) + np.float32(0.5)
+    colour = torch.as_tensor(colour, device=alive.device)
+    border = torch.zeros_like(alive)
+    r = s.radius.double()
+    for edge in (s.mean2d[:, 0].double() - r, s.mean2d[:, 0].double() + r + 15):
+        border |= (torch.remainder(edge + 1e-3, 16.0) < 2e-3) & s.mask
+    cov = {
+        "near_at_or_below": int((live[0] & (s.depth <= 0.2)).sum()),
+        "near_above": int((live[0] & (s.depth > 0.2)).sum()),
+        "past_clamp": int((live[1] & ((ndc_x.abs() > 1.3) | (ndc_y.abs() > 1.3))).sum()),
+        "det_zero": int((live[2] & det_zero).sum()),
+        "op255_under_0.999999": int((live[3] & (op255 < 0.999999)).sum()),
+        "op255_at_or_over_0.999999": int((live[3] & (op255 >= 0.999999)).sum()),
+        "sh_colour_zero": int((live[4][:, None] & (colour == 0)).sum()),
+        "sh_colour_negative": int((live[4][:, None] & (colour < 0)).sum()),
+        "rect_edge_on_tile_border": int((live[5] & border).sum()),
+    }
+    check(all(v > 0 for v in cov.values()), f"projection edge table misses an edge: {cov}")
+    return cov
+
+
+def proj_bound(alive, k_active, k_rest, offset, backward=False):
+    """The least time on the card for one call (bytes: each input read once,
+    each output written once; the few hundred float operations per row are
+    far below the FP32 rate). A live row reads its 44 B of geometry and its
+    12 B per active SH coefficient (and 8 B of offset); every row its alive
+    byte. Forward: 69 B of outputs per row. Backward (`offset`: the kernel
+    writes the offset's gradient): also the 40 B of cotangents per live
+    row, and the gradients of every row (56 B + 12 B per stored coefficient
+    beyond DC, + 8 B of offset)."""
+    n, live = int(alive.shape[0]), int(alive.sum())
+    read = n + live * (44 + 12 * k_active + (0 if backward else 8 * offset))
+    if backward:
+        return bound(read + live * 40 + n * (56 + 12 * k_rest + 8 * offset))
+    return bound(read + n * 69)
+
+
+def proj_timed(params, alive, camera, settings, gx, gy, offset=None, cot=None):
+    """The kernels' and the twins' times on one frame (`cuda_time`; the
+    twins once, they are launch-bound)."""
+    from gsplat_tpu_torch.core import sh as sh_lib
+    from gsplat_tpu_torch.ops import projection as pj
+
+    k_active, k_rest = sh_lib.num_sh_coeffs(settings.sh_degree), params.features_rest.shape[1]
+    args = (params, alive, camera, settings, gx, gy, offset)
+    with torch.no_grad():
+        fwd = {"ms": cuda_time(lambda: pj.project_fwd(*args), 20),
+               "plain_ms": cuda_time(lambda: pj.preprocess_torch(*args), 3),
+               "bound": proj_bound(alive, k_active, k_rest, offset is not None)}
+        if cot is None:
+            return fwd, None
+        bargs = (params, alive, camera, settings, cot)
+        bwd = {"ms": cuda_time(lambda: pj.project_bwd(*bargs), 20),
+               "plain_ms": cuda_time(lambda: pj.preprocess_bwd_torch(*bargs), 3),
+               "bound": proj_bound(alive, k_active, k_rest, True, backward=True)}
+    for name, t in (("project_fwd", fwd), ("project_bwd", bwd)):
+        check(t["ms"] >= t["bound"][0], f"{name} ran in {t['ms']} ms, under its bound "
+              f"{t['bound'][0]}")
+    return fwd, bwd
+
+
+def phase_projection(device):
+    """The projection kernels against their twins: the forward bit for bit
+    (every field on the live rows, zeros on the dead ones), the backward bit
+    for bit (int32 views, so NaN compares) and within per-row relative 1e-5
+    of autograd of the forward twin, the backward twin's arithmetic in
+    float64 within per-row 1e-5 of float64 autograd on every live row, with
+    seeded strided cotangents. Cases:
+    the seeded 65,536-gaussian scene at 640x480 (features of degree 4, every
+    7th row dead) at SH degree 0-4, antialiasing on and off, tight cull on
+    and off; `projection_edge_table` on the same cases; the flagship render frame
+    (1,048,576 gaussians, 1920x1080, degree 3), timed there. The train frame
+    (2,097,152 rows, half dead) is checked and timed on the train path's own
+    inputs (`kernel_rows_train`)."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.render import grid_dims
+    from gsplat_tpu_torch.synthetic import projection_edge_table, tiny_scene
+
+    module, _, camera = tiny_scene(**{**SCENE, "sh_degree": PROJ_SCENE_DEGREE}, device=device)
+    params = proj_params(module)
+    alive = torch.ones(SCENE["n"], dtype=torch.bool, device=device)
+    alive[::PROJ_DEAD_EVERY] = False
+    gx, gy = grid_dims(camera, 16)
+    edge_params, edge_alive, kind = projection_edge_table(camera, device, PROJ_EDGE_EACH,
+                                                          PROJ_DEAD_EVERY)
+    coverage = proj_edge_coverage(edge_params, edge_alive, camera, gx, gy, kind)
+    cases = []
+    for table, p, a in (("scene", params, alive), ("edge_table", edge_params, edge_alive)):
+        cot = proj_cotangents(a.shape[0], device, seed=5)
+        for deg in range(PROJ_SCENE_DEGREE + 1):
+            for aa in (False, True):
+                for tight in (True, False):
+                    settings = make_render_settings(sh_degree=deg, antialiasing=aa,
+                                                    tight_cull=tight)
+                    what = f"{table} degree {deg} aa {aa} tight {tight}"
+                    # the backward does not read tight_cull: once per (degree, aa)
+                    res = proj_check(what, p, a, camera, settings, gx, gy, cot, backward=tight)
+                    cases.append({"table": table, "sh_degree": deg, "antialiasing": aa,
+                                  "tight_cull": tight, **res})
+    del module, params
+
+    # the flagship render frame: checked, then timed
+    module, alive_f, camera_f = tiny_scene(**FULL, device=device)
+    params_f = proj_params(module)
+    del module
+    settings = make_render_settings(sh_degree=3, packet_dtype="float32")
+    gxf, gyf = grid_dims(camera_f, 16)
+    cot = proj_cotangents(FULL["n"], device, seed=6)
+    flagship = proj_check("flagship render frame", params_f, alive_f, camera_f, settings, gxf,
+                          gyf, cot)
+    fwd, bwd = proj_timed(params_f, alive_f, camera_f, settings, gxf, gyf, cot=cot)
+    return {"cases": cases, "edge_coverage": coverage, "render_frame": flagship,
+            "render_frame_fwd": fwd, "render_frame_bwd": bwd}
+
+
 def phase_main_path(device):
     """The full-width render through `render`, then per-kernel measurements."""
     from gsplat_tpu_torch.core.types import make_render_settings
@@ -1491,6 +1830,7 @@ def phase_train(device, blend_mode="sorted"):
     frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
     from gsplat_tpu_torch.train import losses
@@ -1542,12 +1882,17 @@ def phase_train(device, blend_mode="sorted"):
     marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
                         (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
-                        (tb, "expand_instances", None, None)])
-    spans = (("forward", "fwd0", "fwd1"), ("loss", "fwd1", "loss1"),
+                        (tb, "expand_instances", None, None),
+                        (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
+    # `forward` holds `forward_projection`; what the projection backward's
+    # kernel takes (`projection_backward`) is split from the autograd steps
+    # before it and the statistics after it (until Adam)
+    spans = (("forward", "fwd0", "fwd1"), ("forward_projection", "pf0", "pf1"),
+             ("loss", "fwd1", "loss1"),
              ("loss_backward", "loss1", "k3_0"), (bwd_stage, "k3_0", "k3_1"),
-             ("K4_reduce", "k3_1", "k4_1"),
-             ("preprocess_backward_and_stats", "k4_1", "adam0"), ("adam", "adam0", "adam1"),
-             ("dead_row_freeze", "adam1", "end"))
+             ("K4_reduce", "k3_1", "k4_1"), ("to_projection_backward", "k4_1", "pb0"),
+             ("projection_backward", "pb0", "pb1"), ("stats", "pb1", "adam0"),
+             ("adam", "adam0", "adam1"), ("dead_row_freeze", "adam1", "end"))
     stage_ms = {name: [] for name, _, _ in spans}
     with marks:
         for i in range(WARMUP + TIMED):
@@ -1558,8 +1903,9 @@ def phase_train(device, blend_mode="sorted"):
             if i >= WARMUP:
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
-    k3_args, k4_args, pack_args, exp_args = (marks.args[a] for a in (
-        bwd_attr, "reduce_by_gid_cuda", "pack_instances", "expand_instances"))
+    k3_args, k4_args, pack_args, exp_args, pf_args, pb_args = (marks.args[a] for a in (
+        bwd_attr, "reduce_by_gid_cuda", "pack_instances", "expand_instances", "project_fwd",
+        "project_bwd"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
@@ -1567,13 +1913,39 @@ def phase_train(device, blend_mode="sorted"):
         "setup_s": setup_s, "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
         "loss_first": loss[0], "loss_last": loss[-1],
         "stage_ms_median": {k: statistics.median(v) for k, v in stage_ms.items()},
-        "device_profile": profile, "launches": launches, "peak_mem_gib": peak_gib,
+        "device_profile": profile, "kernels_per_step": profile["kernels_per_frame"],
+        "launches": launches, "peak_mem_gib": peak_gib,
         "instances": int(k3_args[0].shape[1]),
     }
     with torch.no_grad():  # the saved forward output carries requires_grad
         rows = (kernel_rows_oit_train(k3_args) if oit
                 else kernel_rows_train(k3_args, k4_args, pack_args, exp_args))
+    if not oit:
+        rows.update(kernel_rows_projection_train(pf_args, pb_args))
     return summary, state, rows, k3_args
+
+
+def kernel_rows_projection_train(pf_args, pb_args):
+    """The projection kernels on the inputs one train step gave them (the
+    train frame: 2,097,152 rows, half dead, the densification offset, the
+    blend's strided cotangents): each against its twin bit for bit, the
+    backward against autograd of the forward twin, their times and
+    bounds."""
+    params, alive, camera, settings, gx, gy, offset = pf_args
+    cot = pb_args[4]
+    check(offset is not None and pb_args[5], "the train step projects without its offset")
+    res = proj_check("train frame", params, alive, camera, settings, gx, gy, cot, offset=offset)
+    fwd, bwd = proj_timed(params, alive, camera, settings, gx, gy, offset, cot)
+    return {
+        "project_fwd_train_frame": measured(fwd["ms"], fwd["plain_ms"], fwd["bound"], 0.0, 0.0,
+                                            rows=res["rows"], live=res["live"]),
+        "project_bwd": measured(bwd["ms"], bwd["plain_ms"], bwd["bound"], 0.0, 0.0,
+                                rel_err_vs_autograd=res["bwd_rel_err_vs_autograd"],
+                                twin_float64_rel_err_vs_float64_autograd=res[
+                                    "bwd_twin_float64_rel_err_vs_float64_autograd"],
+                                rows=res["rows"], live=res["live"],
+                                cotangent_strides=[c.stride() for c in cot]),
+    }
 
 
 def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
@@ -2129,12 +2501,13 @@ class Swaps:
 
 
 def eval_counts(iterations, renders):
-    """Launches of a training run with `renders` evaluation renders: K1'
-    (expand, hybrid pack) and K2' per iteration and per render, K3' and K4'
-    per iteration."""
-    return {"expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
+    """Launches of a training run with `renders` evaluation renders: the
+    projection forward, K1' (expand, hybrid pack) and K2' per iteration and
+    per render, K3', K4' and the projection backward per iteration."""
+    return {"project_fwd": iterations + renders,
+            "expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
             "blend_fwd": iterations + renders, "blend_bwd": iterations,
-            "reduce_by_gid": iterations}
+            "reduce_by_gid": iterations, "project_bwd": iterations}
 
 
 def check_launches(counts, want, what):
@@ -2327,8 +2700,9 @@ def phase_checkpoint_resume(device, root: Path):
         ev = loop.evaluate_test(st, test_cams, settings, bg, pixels)
         eval_ms.append((time.perf_counter() - t0) * 1e3)
     eval_launches = read_counts()
-    check_launches(eval_launches, {"expand_instances": 4, "pack_instances_hybrid": 4,
-                                   "blend_fwd": 4}, "evaluate_test, 2 views twice")
+    check_launches(eval_launches, {"project_fwd": 4, "expand_instances": 4,
+                                   "pack_instances_hybrid": 4, "blend_fwd": 4},
+                   "evaluate_test, 2 views twice")
     l1s, psnrs = [], []
     with torch.no_grad():
         for cam in test_cams:
@@ -2691,9 +3065,10 @@ def phase_bench():
               f"bench {name}: rate {r['pixels_per_s']}, device {r['device_ms']} ms, host {r['ms']} ms")
     grad = 1 + bench.GRAD_ITERS + bench.PROFILED_CALLS  # calls per gradient point
     fwd = 1 + bench.RENDER_ITERS + bench.PROFILED_CALLS
-    want = {"expand_instances": 3 * grad + fwd, "pack_instances": grad,
-            "pack_instances_hybrid": 2 * grad + fwd, "blend_fwd": 3 * grad + fwd,
-            "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad}
+    want = {"project_fwd": 3 * grad + fwd, "expand_instances": 3 * grad + fwd,
+            "pack_instances": grad, "pack_instances_hybrid": 2 * grad + fwd,
+            "blend_fwd": 3 * grad + fwd, "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad,
+            "project_bwd": 3 * grad}
     for name, got in launches.items():
         check(got == want.get(name, 0), f"bench: {name} launched {got} times, "
               f"want {want.get(name, 0)}")
@@ -2776,10 +3151,11 @@ def phase_quality_fixture(device):
         launches = read_counts()
         check(rc_ == 0, f"colmap_proxy returned {rc_}: {buf.getvalue()[-1500:]}")
         renders = test_views + EVAL_TRAIN_VIEWS
-        want = {"expand_instances": views + n_it + renders + test_views,
+        want = {"project_fwd": views + n_it + renders + test_views,
+                "expand_instances": views + n_it + renders + test_views,
                 "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
                 "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
-                "reduce_by_gid": n_it}
+                "reduce_by_gid": n_it, "project_bwd": n_it}
         check_launches(launches, want, "quality run")
         with open(out / "summary.json") as f:
             row = json.load(f)["model"]
@@ -2820,9 +3196,36 @@ def phase_quality_fixture(device):
         for dtype in ("float32", "hybrid"):
             cull[dtype] = cull_summary(cull[dtype], f"quality run, {dtype} packets")
         oit = oit_trained_frame(model_dir, scene_dir, n_it)
+        proj = projection_trained_state(model_dir, scene_dir, n_it)
     return {"iterations": n_it, "run_s": run_s, "summary": row, "self_consistency": self_err,
             "psnr_bar": QUALITY_PSNR_BAR, "trained_cloud": trained, "cull": cull,
-            "oit_trained_frame": oit, "launches": launches}
+            "oit_trained_frame": oit, "projection_trained_state": proj, "launches": launches}
+
+
+def projection_trained_state(model_dir, scene_dir, iteration):
+    """The projection backward on a trained state (`snapshot_check`): on
+    every train view the kernel equals its twin bit for bit, and each
+    gradient component over the live rows is no further from float64
+    autograd, relative to its largest value, than PROJ_TRAINED_FACTOR times
+    float32 autograd's distance (both are float32 orders of one sum; on a
+    trained state neither is within 1e-5 of float64 on every view). These
+    launches compare and are not counted on any path."""
+    from gsplat_tpu_torch.scripts.plain_projection import snapshot_check
+
+    res = snapshot_check(model_dir, scene_dir, iteration, DEVICE)
+    for v in res["views"]:
+        check(v["equal_to_twin"], f"project_bwd on the trained state, {v['view']}: not equal "
+              "to its twin")
+        check(v["kernel_vs_float64"] <= PROJ_TRAINED_FACTOR * v["autograd_vs_float64"],
+              f"project_bwd on the trained state, {v['view']}: {v['kernel_vs_float64']} from "
+              f"float64 autograd, float32 autograd {v['autograd_vs_float64']}")
+    ratio = [v["kernel_vs_float64"] / max(v["autograd_vs_float64"], 1e-300)
+             for v in res["views"]]
+    return {"views": len(res["views"]), "live": res["live"],
+            "kernel_vs_float64_max": max(v["kernel_vs_float64"] for v in res["views"]),
+            "autograd_vs_float64_max": max(v["autograd_vs_float64"] for v in res["views"]),
+            "ratio_median": statistics.median(ratio), "ratio_max": max(ratio),
+            "nonfinite_max": max(max(v["nonfinite"]) for v in res["views"])}
 
 
 def oit_trained_frame(model_dir, scene_dir, iteration):
@@ -3256,6 +3659,26 @@ def sass_k1_k4():
     return out
 
 
+def sass_projection():
+    """The projection kernels as built, one entry per instantiation
+    (`project_fwd_kernel<degree, aa, tight>`, `project_bwd_kernel<degree,
+    aa>`): registers, stack and local memory (`cuobjdump -res-usage`) and
+    the local loads and stores in their SASS. A spill is recorded, not
+    refused."""
+    ops, use = sass_counts("projection"), res_usage("projection")
+    out = {}
+    for f, u in use.items():
+        m = re.search(r"project_(fwd|bwd)_kernelILi(\d)ELb([01])E(?:Lb([01])E)?", f)
+        if not m:
+            continue
+        name = f"project_{m.group(1)}<{m.group(2)},{m.group(3)}" + (
+            f",{m.group(4)}>" if m.group(4) else ">")
+        o = ops.get(f, {})
+        out[name] = {**u, "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
+    check(len(out) == 30, f"projection: {len(out)} kernel instantiations, want 20 + 10")
+    return out
+
+
 def phase_sass():
     """Instruction counts of the probe kernels: the skeletons keep their ten
     staging stores (volatile, so nothing may drop them) and their barriers;
@@ -3284,6 +3707,7 @@ def phase_sass():
                      "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
     out.update(sass_blend())
     out.update(sass_k1_k4())
+    out["projection"] = sass_projection()
     return out
 
 
@@ -3423,8 +3847,14 @@ def phase_probe_path():
     return out, launches
 
 
+# the projection's kernels replace no Pallas kernel: the JAX package's
+# `preprocess` is XLA fusions
+PROJECTION_REPLACES = "gsplat_tpu/ops/projection.py:120 preprocess (XLA fusions; no Pallas kernel)"
+
 KERNEL_ROWS = (
     # (row, path whose count is `launches`, source, TPU kernel)
+    ("project_fwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
+    ("project_bwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
     ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
      "gsplat_tpu/ops/binning.py:485"),
     ("pack_instances", "render", "gsplat_tpu_torch/csrc/binning.cu",
@@ -3456,7 +3886,9 @@ KERNEL_ROWS = (
 
 # (row, path whose profile times it, kernel function): `profiled_ms`, the
 # kernel's device time per frame or step in that path's profiled run
-PROFILED_ROWS = (("expand_instances", "render", "expand_instances_kernel"),
+PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
+                 ("project_bwd", "train", "project_bwd_kernel"),
+                 ("expand_instances", "render", "expand_instances_kernel"),
                  ("pack_instances", "render", "pack_instances_kernel"),
                  ("blend_fwd", "render", "blend_fwd_kernel"),
                  ("pack_instances_hybrid", "train", "pack_instances_kernel"),
@@ -3515,6 +3947,9 @@ def main() -> int:
          libraries=[_kernels.library_path(s).name for s in _kernels.SOURCES])
     sass = phase_sass()
     emit(phase="sass", kernels=sass)
+    t = time.perf_counter()
+    projection = phase_projection(device)
+    emit(phase="projection", **projection, seconds=time.perf_counter() - t)
 
     with torch.inference_mode():
         t = time.perf_counter()
@@ -3567,6 +4002,15 @@ def main() -> int:
                      + measures["pack_instances"]["ms"],
                      "train": exp_train["ms"] + measures["pack_instances_hybrid"]["ms"]})
     measures["pack_instances"]["sass"] = sass["pack_instances"]
+    # the projection: the forward's row on the render frame, its train
+    # frame beside it; the backward's on the train frame
+    fwd = projection["render_frame_fwd"]
+    measures["project_fwd"] = measured(
+        fwd["ms"], fwd["plain_ms"], fwd["bound"], 0.0, 0.0,
+        train_frame=measures.pop("project_fwd_train_frame"),
+        sass={k: v for k, v in sass["projection"].items() if k.startswith("project_fwd<3,")})
+    measures["project_bwd"]["sass"] = {k: v for k, v in sass["projection"].items()
+                                       if k.startswith("project_bwd<3,")}
     measures["reduce_by_gid"].update(sass={k: sass[k] for k in (
         "reduce_by_gid", "reduce_by_gid_pack_bf16", "red_forms")}, subnormals=subnormals)
     k4 = measures["reduce_by_gid"]

@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
-           "probe_skeleton", "probe_ops")
+           "probe_skeleton", "probe_ops", "projection")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,7 +76,35 @@ _SIGNATURES = {
         "gs_blend_mix_f32": (_P, _P, _I, _I, _P),
         "gs_blend_mix_bf16": (_P, _P, _I, _I, _P),
     },
+    # the argument blocks are the structures below, passed by pointer
+    "projection": {
+        "gs_project_fwd": (_P, _P, _I, _I, _I, _P),
+        "gs_project_bwd": (_P, _P, _P, _I, _I, _P),
+    },
 }
+
+
+def _struct(name, fields):
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+# the projection kernels' argument blocks (`csrc/projection.cu`), field for
+# field; a pointer left None is NULL
+ProjectParams = _struct("ProjectParams", [
+    *((f, _P) for f in ("xyz", "scaling", "rotation", "opacity", "features_dc",
+                        "features_rest", "mean2d_offset", "alive", "world_view",
+                        "full_proj", "camera_center", "tan_fovx", "tan_fovy")),
+    ("n", _LL), *((f, _I) for f in ("k_rest", "width", "height", "grid_x", "grid_y", "tile")),
+    ("scale_modifier", ctypes.c_float)])
+ProjectOutputs = _struct("ProjectOutputs", [(f, _P) for f in (
+    "mean2d", "conic", "opacity", "rgb", "depth", "radius", "cull_qmax", "rect_min",
+    "rect_max", "tiles_touched", "mask")])
+# each cotangent with its strides in elements (row, column)
+ProjectCotangents = _struct("ProjectCotangents", [
+    item for f in ("mean2d", "conic", "opacity", "rgb", "depth")
+    for item in ((f, _P), (f"{f}_s0", _LL), (f"{f}_s1", _LL))])
+ProjectGrads = _struct("ProjectGrads", [(f, _P) for f in (
+    "xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest", "mean2d_offset")])
 
 
 def nvcc_path() -> str:

@@ -27,8 +27,14 @@ def inverse_sigmoid(x):
 
 
 def normalize_rotation(q, eps: float = 0.0):
-    """Unit-normalize quaternions (wxyz), last axis."""
-    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps)
+    """Unit-normalize quaternions (wxyz), last axis.
+
+    The sum of squares is written out left to right, the order the
+    projection kernel uses (`csrc/projection.cu`): `torch.sum` fixes no
+    order, and the kernel is held bit for bit against this function.
+    """
+    q0, q1, q2, q3 = (q[..., i:i + 1] for i in range(4))
+    norm = torch.sqrt(((q0 * q0 + q1 * q1) + q2 * q2) + q3 * q3 + eps)
     return q / norm
 
 

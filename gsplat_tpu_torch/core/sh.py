@@ -96,10 +96,17 @@ def eval_sh_color(degree: int, sh_coeffs, dirs):
     Returns:
       (color (N, 3) clamped at 0, clamped mask (N, 3) bool).
     """
-    dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
+    # both sums are written out in ascending order, the order the projection
+    # kernel uses (`csrc/projection.cu`): `torch.sum` fixes no order, and
+    # the kernel is held bit for bit against this function
+    dx, dy, dz = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    dirs = dirs / torch.sqrt((dx * dx + dy * dy) + dz * dz)
     k = num_sh_coeffs(degree)
     basis = sh_basis(degree, dirs)
-    color = torch.sum(basis[:, :, None] * sh_coeffs[:, :k, :], dim=1) + 0.5
+    color = basis[:, 0:1] * sh_coeffs[:, 0, :]
+    for j in range(1, k):
+        color = color + basis[:, j:j + 1] * sh_coeffs[:, j, :]
+    color = color + 0.5
     clamped = color < 0.0
     return torch.clamp(color, min=0.0), clamped
 

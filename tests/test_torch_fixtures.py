@@ -251,6 +251,20 @@ def test_trained_cloud_row_and_cull(chain_run):
         assert 0.0 < cull["culled_share"]["blocks_8x4"] < 1.0
 
 
+def test_projection_snapshot_check(chain_run):
+    """`plain_projection.snapshot_check` on the chain's snapshot: every
+    train view differentiated, the backward (the twin on the CPU) and
+    float32 autograd each measured against float64 autograd."""
+    from gsplat_tpu_torch.scripts.plain_projection import snapshot_check
+
+    res = snapshot_check(str(chain_run / "model"), str(chain_run / "scene"), ITERS, "cpu")
+    n = SMALL["n_images"]
+    assert len(res["views"]) == n - len(range(0, n, 8)) and res["live"] > 0
+    for v in res["views"]:
+        assert v["equal_to_twin"] and v["nonfinite"] == [0, 0] and v["visible"] > 0
+        assert 0.0 < v["autograd_vs_float64"] < 1e-3 and v["kernel_vs_float64"] < 1e-3
+
+
 def test_bench_scans_trained_runs(chain_run, tmp_path, monkeypatch):
     """`trained_rows` renders the first candidate of each scene that exists
     and skips the rest; `run` renders none."""
