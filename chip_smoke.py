@@ -21,7 +21,8 @@ JSON line per phase:
    reductions per instance in each instantiation, every one a vector form
    (their whole mnemonics, `.FTZ` or not, go on the kernels line); the
    projection kernels' registers, stack and local memory per
-   instantiation (a spill is recorded, not refused);
+   instantiation, and those of the Adam and loss kernels (a spill is
+   recorded, not refused);
    then `projection`: the projection forward (`project_fwd`) and backward
    (`project_bwd`) against their twins `preprocess_torch` and
    `preprocess_bwd_torch`: the forward bit for bit on every field of the
@@ -96,8 +97,8 @@ JSON line per phase:
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
-   just after (the projection forward and backward, K1', K2', K3' and K4'
-   once per step; every path below also projects once per frame, step,
+   just after (the projection forward and backward, K1', K2', K3', K4',
+   the loss forward and backward and Adam once per step; every path below also projects once per frame, step,
    evaluation view, viewer request and mesh rank-step), the loss falling,
    no NaN; a stage split (the projection's forward and backward kernels
    apart), the busy share and kernels per step, peak memory; the
@@ -110,7 +111,20 @@ JSON line per phase:
    K2' equal to its
    twin on the train frame and timed there, the cull's check on it, and
    neither K2' nor K3' under its bound; then `warp_cull`: both frames'
-   cull checks and skipped shares;
+   cull checks and skipped shares; `adam`: the Adam kernel (`adam_rows`)
+   bit for bit against its twin `adam_update_torch` on every row (int32
+   views), on the step's own inputs (2,097,152 rows, half dead, the
+   projection backward's gradients) dense with the freeze, sparse with
+   visibility all, none and a seeded half, counts 0, 1 and 30,000 and a
+   seeded mix, without the freeze, and on N - 77 rows; timed beside its
+   bound and its twin (the unfused update and freeze it replaced);
+   `loss`: the loss kernels (`loss_fwd`, `loss_bwd`) against their twins
+   on the train frame's render and target and on seeded pairs at
+   1920x1080, 400x304, 200x120, 16x16 and 11x5: the partial maps of both
+   images and both gradients bit for bit (int32 views), the loss, L1 and
+   SSIM means bit for bit (the twin sums in the kernel's order);
+   timed beside their bounds, their twins and the `F.conv2d` route they
+   replaced (`photometric_loss_conv`);
 15. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
@@ -327,7 +341,8 @@ def cuda_time(fn, reps):
 # the port's kernel functions on the paths, as the profiler names them
 PATH_KERNEL_FUNCS = ("expand_instances_kernel", "pack_instances_kernel", "blend_fwd_kernel",
                      "blend_bwd_kernel", "reduce_by_gid_kernel", "oit_fwd_kernel",
-                     "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel")
+                     "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel",
+                     "adam_rows_kernel", "loss_fwd_kernel", "loss_bwd_kernel")
 
 
 def device_profile(frame, frames=3, top=10):
@@ -340,7 +355,8 @@ def device_profile(frame, frames=3, top=10):
     frames run slower than unprofiled ones (`profiled_frame_ms`); the share
     is theirs. Also the summed device time per kernel name, the top kernels,
     and the device time per frame of each of the port's kernels the frame
-    ran (no host gap between launches counts there)."""
+    ran (no host gap between launches counts there), and the host-to-device
+    copies per frame."""
     from torch.autograd import DeviceType
 
     from gsplat_tpu_torch.profiling import busy_span_us, profile_calls
@@ -357,6 +373,7 @@ def device_profile(frame, frames=3, top=10):
         "profiled_frame_ms": span / 1e3 / frames,
         "busy_ms_per_frame": busy / 1e3 / frames,
         "busy_share": busy / span,
+        "htod_copies_per_frame": sum(c for k, _, c in rows if "HtoD" in k),
         "top_kernels": [{"kernel": k[:120], "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:top]],
         "port_kernels_ms_per_frame": {f: sum(ms for k, ms, _ in rows if f in k)
@@ -371,8 +388,10 @@ def all_kernels():
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
     from gsplat_tpu_torch.probes import ablate, bf16_rate, op_rate
+    from gsplat_tpu_torch.train import losses, optim
 
     return {"project_fwd": pj.project_fwd, "project_bwd": pj.project_bwd,
+            "adam_rows": optim.adam_rows, "loss_fwd": losses.loss_fwd, "loss_bwd": losses.loss_bwd,
             "expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
             "reduce_by_gid": rd.reduce_by_gid_cuda,
@@ -415,14 +434,16 @@ def read_counts():
 
 # the kernels each path launches once per frame or step: every path
 # projects (the projection forward, and its backward in training); serving
-# packs float32 packets and has no backward; training packs hybrid ones; the
-# OIT paths blend with K5' (and K6') in place of K2' (and K3')
+# packs float32 packets and has no backward; training packs hybrid ones and
+# runs the loss forward and backward and Adam; the OIT paths blend with K5'
+# (and K6') in place of K2' (and K3')
+STEP_KERNELS = ("loss_fwd", "loss_bwd", "adam_rows")
 RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "blend_fwd")
 TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "blend_fwd",
-                 "blend_bwd", "reduce_by_gid", "project_bwd")
+                 "blend_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
 OIT_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "oit_fwd")
 OIT_TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "oit_fwd",
-                     "oit_bwd", "reduce_by_gid", "project_bwd")
+                     "oit_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
 BF16_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances_bf16", "blend_fwd")
 
 
@@ -1833,7 +1854,7 @@ def phase_train(device, blend_mode="sorted"):
     from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
-    from gsplat_tpu_torch.train import losses
+    from gsplat_tpu_torch.train import losses, optim
     from gsplat_tpu_torch.train import step as ts
 
     t0 = time.perf_counter()
@@ -1880,19 +1901,23 @@ def phase_train(device, blend_mode="sorted"):
     # and the pack get in a step
     bwd_attr, bwd_stage = ("blend_oit_bwd", "K6_oit_bwd") if oit else ("blend_bwd", "K3_blend_bwd")
     marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
+                        (losses, "loss_fwd", "lf0", "lf1"), (losses, "loss_bwd", "lb0", "lb1"),
                         (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
-                        (tb, "expand_instances", None, None),
+                        (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
                         (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
-    # `forward` holds `forward_projection`; what the projection backward's
-    # kernel takes (`projection_backward`) is split from the autograd steps
-    # before it and the statistics after it (until Adam)
+    # `forward` holds `forward_projection`, `loss` holds `loss_kernel` and
+    # `loss_backward` holds `loss_backward_kernel`; what the projection
+    # backward's kernel takes (`projection_backward`) is split from the
+    # autograd steps before it and the statistics after it (until Adam);
+    # `adam` is the Adam kernel with the freeze, `after_adam` what follows
     spans = (("forward", "fwd0", "fwd1"), ("forward_projection", "pf0", "pf1"),
-             ("loss", "fwd1", "loss1"),
-             ("loss_backward", "loss1", "k3_0"), (bwd_stage, "k3_0", "k3_1"),
+             ("loss", "fwd1", "loss1"), ("loss_kernel", "lf0", "lf1"),
+             ("loss_backward", "loss1", "k3_0"), ("loss_backward_kernel", "lb0", "lb1"),
+             (bwd_stage, "k3_0", "k3_1"),
              ("K4_reduce", "k3_1", "k4_1"), ("to_projection_backward", "k4_1", "pb0"),
              ("projection_backward", "pb0", "pb1"), ("stats", "pb1", "adam0"),
-             ("adam", "adam0", "adam1"), ("dead_row_freeze", "adam1", "end"))
+             ("adam", "adam0", "adam1"), ("after_adam", "adam1", "end"))
     stage_ms = {name: [] for name, _, _ in spans}
     with marks:
         for i in range(WARMUP + TIMED):
@@ -1903,9 +1928,10 @@ def phase_train(device, blend_mode="sorted"):
             if i >= WARMUP:
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
-    k3_args, k4_args, pack_args, exp_args, pf_args, pb_args = (marks.args[a] for a in (
-        bwd_attr, "reduce_by_gid_cuda", "pack_instances", "expand_instances", "project_fwd",
-        "project_bwd"))
+    k3_args, k4_args, pack_args, exp_args, pf_args, pb_args, adam_args, lf_args = (
+        marks.args[a] for a in (bwd_attr, "reduce_by_gid_cuda", "pack_instances",
+                                "expand_instances", "project_fwd", "project_bwd", "adam_rows",
+                                "loss_fwd"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
@@ -1922,6 +1948,9 @@ def phase_train(device, blend_mode="sorted"):
                 else kernel_rows_train(k3_args, k4_args, pack_args, exp_args))
     if not oit:
         rows.update(kernel_rows_projection_train(pf_args, pb_args))
+        rows.update(kernel_rows_adam(adam_args))
+        rows.update(kernel_rows_loss(lf_args, device))
+    del adam_args, lf_args, marks
     return summary, state, rows, k3_args
 
 
@@ -2083,6 +2112,177 @@ def kernel_rows_oit_train(k6_args):
     return {"oit_bwd": measured(ms, plain_ms, bnd, float((got - want).abs().max()), rel,
                                 evaluated_pairs=evaluated, kept_pairs=kept, **walked,
                                 bitwise_equal=bool(torch.equal(got, want)))}
+
+
+# the kernels of the train step's own stages replace no Pallas kernel: the
+# JAX package's Adam and loss are XLA fusions
+ADAM_REPLACES = ("gsplat_tpu/train/optim.py:41 adam_update + gsplat_tpu/train/step.py:159 "
+                 "freeze (XLA fusions; no Pallas kernel)")
+LOSS_REPLACES = ("gsplat_tpu/train/losses.py:88 ssim (_ssim_fwd :104, _ssim_bwd :133) and "
+                 ":19 l1_loss, as :151 photometric_loss (XLA fusions; no Pallas kernel)")
+# float32 operations per element of one Adam update: m' 3, v' 4, the two
+# bias divisions 2, sqrt and + eps 2, lr * and / 2, p - 1
+ADAM_OPS_PER_ELEMENT = 14
+# per image value, forward: x^2, y^2, xy 3; two passes of 5 blurs of 11
+# taps (11 mul + 10 add) 210; the three variances 6; the SSIM map 14; the
+# partials 24; |x - y| and the two sums 4. Backward: two passes of 3 blurs
+# 126; sign, the two coefficients' products and the combination 11
+LOSS_FWD_OPS_PER_VALUE = 261
+LOSS_BWD_OPS_PER_VALUE = 137
+LOSS_SIZES = ((1920, 1080), (400, 304), (200, 120), (16, 16), (11, 5))  # W x H
+ADAM_COUNTS = (0, 1, 30_000)
+
+
+def adam_mismatch(got, want):
+    """The first output of the Adam kernel that is not bit for bit its
+    twin's (int32 views), or None."""
+    for i, name in enumerate(("params", "m", "v")):
+        for k, t in want[i].items():
+            if not bitwise_equal(got[i][k], t):
+                return f"{name}.{k}"
+    return None if torch.equal(got[3], want[3]) else "counts"
+
+
+def adam_bound(args):
+    """Bytes: p, g, m and v read and p, m and v written per element (the
+    gradient counted once, not its layout's padding), the count read and
+    written, the alive and visibility bytes; operations: the update's."""
+    params, counts, vis, alive = args[0], args[4], args[6], args[8]
+    n = counts.shape[0]
+    width = sum(p.numel() // max(n, 1) for p in params.values())
+    nbytes = n * (width * 7 * 4 + 8 + (alive is not None) + (vis is not None))
+    return bound(nbytes, n * width * ADAM_OPS_PER_ELEMENT), width
+
+
+def kernel_rows_adam(args):
+    """The Adam kernel on the inputs one train step gave it (the train
+    frame's 2,097,152 rows, half dead, the projection backward's gradients)
+    and on variants of them, each against its twin bit for bit on every
+    row: dense as the step ran it; sparse with visibility all, none and a
+    seeded half; counts 0, 1 and 30,000 (sparse) and a seeded mix (dense);
+    no freeze; the first N - 77 rows (not a multiple of the kernel's 256).
+    Then the kernel and its twin (the unfused update and freeze the step
+    ran before, without its learning-rate copies) timed on the step's
+    inputs."""
+    from gsplat_tpu_torch.train import optim
+
+    params, grads, m, v, counts, lrs, vis, eps, alive = args
+    check(vis is None and alive is not None, "the train step's Adam: dense, with the freeze")
+    n, dev = counts.shape[0], counts.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    half = torch.rand(n, generator=gen, device=dev) < 0.5
+    mixed = torch.randint(0, ADAM_COUNTS[-1] + 1, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    base = (params, grads, m, v)
+    cases = {"train_step": args}
+    for name, mask in (("all", torch.ones_like(half)), ("none", torch.zeros_like(half)),
+                       ("half", half)):
+        cases[f"sparse_visibility_{name}"] = (*base, counts, lrs, mask, eps, alive)
+    for c in ADAM_COUNTS:
+        cases[f"sparse_counts_{c}"] = (*base, torch.full_like(counts, c), lrs, half, eps, alive)
+    cases["dense_counts_mixed"] = (*base, mixed, lrs, None, eps, alive)
+    cases["no_freeze"] = (*base, counts, lrs, None, eps, None)
+    cut = n - 77
+    check(cut % 256 != 0, "the cut row count is a multiple of the kernel's block")
+    head = lambda d: {k: t[:cut] for k, t in d.items()}
+    cases["rows_not_a_multiple_of_256"] = (head(params), head(grads), head(m), head(v),
+                                           counts[:cut], lrs, half[:cut], eps, alive[:cut])
+    results = {}
+    for name, a in cases.items():
+        bad = adam_mismatch(optim.adam_rows(*a), optim.adam_update_torch(*a))
+        check(bad is None, f"adam_rows, {name}: {bad} differs from its twin")
+        results[name] = {"rows": int(a[4].shape[0]), "sparse": a[6] is not None,
+                         "freeze": a[8] is not None}
+    del cases
+    ms = cuda_time(lambda: optim.adam_rows(*args), 20)
+    plain_ms = cuda_time(lambda: optim.adam_update_torch(*args), 3)
+    bnd, width = adam_bound(args)
+    check(ms >= bnd[0], f"adam_rows ran in {ms} ms, under its bound {bnd[0]}")
+    strides = {k: g.stride() for k, g in grads.items()}
+    return {"adam_rows": measured(ms, plain_ms, bnd, 0.0, 0.0, replaced_route_ms=plain_ms,
+                                  cases=results, rows=n, alive=int(alive.sum()),
+                                  floats_per_row=width, grad_strides=strides)}
+
+
+def loss_pair(w, h, device, seed):
+    """A seeded image pair: x uniform, y = x + noise 0.1 clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((h, w, 3)).astype(np.float32)
+    y = np.clip(x + 0.1 * rng.standard_normal((h, w, 3)), 0.0, 1.0).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def loss_check(what, x, y, lam, taps):
+    """The loss kernels against their twins on one pair: the forward's
+    partial maps of both images and its three means bit for bit (int32
+    views; the twin sums the means in the kernel's order); the backward's
+    gradient for each image bit for bit, with the step's incoming gradient
+    (d loss = 1) and with all three given."""
+    from gsplat_tpu_torch.train import losses
+
+    got = losses.loss_fwd(x, y, lam, True, True, taps)
+    want = losses.loss_fwd_torch(x, y, lam, True, True, taps)
+    for i, name in ((3, "x"), (4, "y")):
+        check(bitwise_equal(got[i], want[i]), f"loss_fwd, {what}: the {name} partial maps differ "
+              f"from the twin's")
+    g, t = [float(v) for v in got[:3]], [float(v) for v in want[:3]]
+    rel = {k: abs(a - b) / abs(b) for k, a, b in zip(("loss", "l1", "ssim"), g, t)}
+    check(all(bitwise_equal(a, b) for a, b in zip(got[:3], want[:3])),
+          f"loss_fwd, {what}: means differ from the twin's: {dict(zip(rel, g))} against "
+          f"{dict(zip(rel, t))}")
+    one = torch.ones((), device=x.device)
+    for grads in ((one, None, None), (one, 0.25 * one, -0.5 * one)):
+        for a, b, part in ((x, y, got[3]), (y, x, got[4])):
+            check(bitwise_equal(losses.loss_bwd(a, b, part, *grads, lam, taps),
+                                losses.loss_bwd_torch(a, b, part, *grads, lam, taps)),
+                  f"loss_bwd, {what}: the gradient differs from the twin's")
+    return {"size": f"{x.shape[1]}x{x.shape[0]}", "means": dict(zip(("loss", "l1", "ssim"), t)),
+            "mean_rel_err": rel, "mean_abs_err": max(abs(a - b) for a, b in zip(g, t))}
+
+
+def kernel_rows_loss(fwd_args, device):
+    """The loss kernels on the train frame's images (the step's render and
+    target, 1920x1080) and on seeded pairs at LOSS_SIZES, each against its
+    twins (`loss_check`); then on the train frame the kernels, their twins
+    and the route they replaced (`photometric_loss_conv`: autograd of the L1
+    mean and two depthwise `F.conv2d` per blur, forward and backward)
+    timed beside their bounds."""
+    from gsplat_tpu_torch.train import losses
+
+    image, gt, lam, want_x, want_y, taps = fwd_args
+    check(want_x and not want_y, "the train step must ask for the image's partials alone")
+    image, gt = image.detach(), gt.detach()
+    cases = [loss_check("train frame", image, gt, lam, taps)]
+    for i, (w, h) in enumerate(LOSS_SIZES):
+        cases.append(loss_check(f"{w}x{h}", *loss_pair(w, h, device, 20 + i), lam, taps))
+
+    one = torch.ones((), device=device)
+    partials = losses.loss_fwd(image, gt, lam, True, False, taps)[3]
+    fwd_ms = cuda_time(lambda: losses.loss_fwd(image, gt, lam, True, False, taps), 20)
+    bwd_ms = cuda_time(lambda: losses.loss_bwd(image, gt, partials, one, None, None, lam, taps),
+                       20)
+    fwd_plain = cuda_time(lambda: losses.loss_fwd_torch(image, gt, lam, True, False, taps), 3)
+    bwd_plain = cuda_time(lambda: losses.loss_bwd_torch(image, gt, partials, one, None, None,
+                                                        lam, taps), 3)
+    x = image.clone().requires_grad_(True)
+    with torch.enable_grad():
+        route_fwd = cuda_time(lambda: losses.photometric_loss_conv(x, gt, lam), 5)
+        route_both = cuda_time(lambda: torch.autograd.grad(
+            losses.photometric_loss_conv(x, gt, lam)[0], x), 5)
+    n = image.numel()
+    blocks = -(-image.shape[1] // 16) * -(-image.shape[0] // 16)
+    fwd_bound = bound(5 * n * 4 + 2 * blocks * 4, n * LOSS_FWD_OPS_PER_VALUE)
+    bwd_bound = bound(6 * n * 4, n * LOSS_BWD_OPS_PER_VALUE)
+    check(fwd_ms >= fwd_bound[0] and bwd_ms >= bwd_bound[0],
+          f"a loss kernel under its bound: {fwd_ms} / {fwd_bound[0]}, {bwd_ms} / {bwd_bound[0]}")
+    err = max(c["mean_abs_err"] for c in cases)
+    rel = max(max(c["mean_rel_err"].values()) for c in cases)
+    return {"loss_fwd": measured(fwd_ms, fwd_plain, fwd_bound, err, rel,
+                                 replaced_route_ms=route_fwd, partials_bitwise=True,
+                                 cases=cases),
+            "loss_bwd": measured(bwd_ms, bwd_plain, bwd_bound, 0.0, 0.0,
+                                 replaced_route_ms=route_both - route_fwd,
+                                 replaced_route_fwd_bwd_ms=route_both)}
 
 
 def phase_densify(state):
@@ -2503,11 +2703,13 @@ class Swaps:
 def eval_counts(iterations, renders):
     """Launches of a training run with `renders` evaluation renders: the
     projection forward, K1' (expand, hybrid pack) and K2' per iteration and
-    per render, K3', K4' and the projection backward per iteration."""
+    per render, K3', K4', the projection backward, the loss forward and
+    backward and Adam per iteration."""
     return {"project_fwd": iterations + renders,
             "expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
             "blend_fwd": iterations + renders, "blend_bwd": iterations,
-            "reduce_by_gid": iterations, "project_bwd": iterations}
+            "reduce_by_gid": iterations, "project_bwd": iterations,
+            **{k: iterations for k in STEP_KERNELS}}
 
 
 def check_launches(counts, want, what):
@@ -3155,7 +3357,8 @@ def phase_quality_fixture(device):
                 "expand_instances": views + n_it + renders + test_views,
                 "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
                 "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
-                "reduce_by_gid": n_it, "project_bwd": n_it}
+                "reduce_by_gid": n_it, "project_bwd": n_it, "adam_rows": n_it,
+                "loss_fwd": n_it + test_views, "loss_bwd": n_it}
         check_launches(launches, want, "quality run")
         with open(out / "summary.json") as f:
             row = json.load(f)["model"]
@@ -3679,6 +3882,24 @@ def sass_projection():
     return out
 
 
+def sass_step_kernels():
+    """The Adam and loss kernels as built: registers, stack, shared and
+    local memory (`cuobjdump -res-usage`) and the local loads and stores
+    in their SASS, per kernel function. A spill is recorded, not refused."""
+    out = {}
+    for source, parts in (("adam", ("adam_rows_kernel",)),
+                          ("loss", ("loss_fwd_kernel_finish", "loss_fwd_kernel",
+                                    "loss_bwd_kernel"))):
+        ops, use = sass_counts(source), res_usage(source)
+        for part in parts:
+            hits = [f for f in use if part in f and not (part == "loss_fwd_kernel"
+                                                         and "finish" in f)]
+            check(len(hits) == 1, f"{part}: {len(hits)} functions in lib{source}")
+            o = ops.get(hits[0], {})
+            out[part] = {**use[hits[0]], "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
+    return out
+
+
 def phase_sass():
     """Instruction counts of the probe kernels: the skeletons keep their ten
     staging stores (volatile, so nothing may drop them) and their barriers;
@@ -3708,6 +3929,7 @@ def phase_sass():
     out.update(sass_blend())
     out.update(sass_k1_k4())
     out["projection"] = sass_projection()
+    out["step_kernels"] = sass_step_kernels()
     return out
 
 
@@ -3855,6 +4077,9 @@ KERNEL_ROWS = (
     # (row, path whose count is `launches`, source, TPU kernel)
     ("project_fwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
     ("project_bwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
+    ("adam_rows", "train", "gsplat_tpu_torch/csrc/adam.cu", ADAM_REPLACES),
+    ("loss_fwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
+    ("loss_bwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
     ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
      "gsplat_tpu/ops/binning.py:485"),
     ("pack_instances", "render", "gsplat_tpu_torch/csrc/binning.cu",
@@ -3895,7 +4120,10 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
                  ("blend_bwd", "train", "blend_bwd_kernel"),
                  ("reduce_by_gid", "train", "reduce_by_gid_kernel"),
                  ("oit_fwd", "oit_render", "oit_fwd_kernel"),
-                 ("oit_bwd", "oit_train", "oit_bwd_kernel"))
+                 ("oit_bwd", "oit_train", "oit_bwd_kernel"),
+                 ("adam_rows", "train", "adam_rows_kernel"),
+                 ("loss_fwd", "train", "loss_fwd_kernel"),
+                 ("loss_bwd", "train", "loss_bwd_kernel"))
 
 
 def attach_profiled(measures, profiles):
@@ -3985,6 +4213,19 @@ def main() -> int:
     train_summary, state, train_measures, k3_args = phase_train(device)
     emit(phase="train_path", **train_summary, seconds=time.perf_counter() - t)
     measures.update(train_measures)
+    step_sass = sass["step_kernels"]
+    adam = measures["adam_rows"]
+    adam["sass"] = step_sass["adam_rows_kernel"]
+    emit(phase="adam", cases=adam["cases"], ms=adam["ms"], plain_ms=adam["plain_ms"],
+         bound_ms=adam["bound_ms"], rows=adam["rows"], alive=adam["alive"],
+         grad_strides=adam["grad_strides"], sass=adam["sass"])
+    measures["loss_fwd"]["sass"] = {k: step_sass[k] for k in ("loss_fwd_kernel",
+                                                              "loss_fwd_kernel_finish")}
+    measures["loss_bwd"]["sass"] = step_sass["loss_bwd_kernel"]
+    emit(phase="loss", cases=measures["loss_fwd"]["cases"],
+         **{f"{k}_{f}": measures[k][f] for k in ("loss_fwd", "loss_bwd")
+            for f in ("ms", "plain_ms", "bound_ms", "replaced_route_ms")},
+         sass={k: measures[k]["sass"] for k in ("loss_fwd", "loss_bwd")})
     # the warp cull of K2' and K3' on the flagship frames, and the blend
     # kernels' build facts, beside their rows
     k2_train = measures.pop("blend_fwd_train_frame")

@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
-           "probe_skeleton", "probe_ops", "projection")
+           "probe_skeleton", "probe_ops", "projection", "adam", "loss")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,6 +81,8 @@ _SIGNATURES = {
         "gs_project_fwd": (_P, _P, _I, _I, _I, _P),
         "gs_project_bwd": (_P, _P, _P, _I, _I, _P),
     },
+    "adam": {"gs_adam_rows": (_P, _P)},
+    "loss": {"gs_loss_fwd": (_P, _P), "gs_loss_bwd": (_P, _P)},
 }
 
 
@@ -105,6 +107,30 @@ ProjectCotangents = _struct("ProjectCotangents", [
     for item in ((f, _P), (f"{f}_s0", _LL), (f"{f}_s1", _LL))])
 ProjectGrads = _struct("ProjectGrads", [(f, _P) for f in (
     "xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest", "mean2d_offset")])
+
+# the Adam kernel's argument block (`csrc/adam.cu`): up to ADAM_MAX_FIELDS
+# fields, each p, g, m, v and the three outputs, g's row stride in elements,
+# the row width and the learning rate
+ADAM_MAX_FIELDS = 8
+AdamField = _struct("AdamField", [
+    *((f, _P) for f in ("p", "g", "m", "v", "p_out", "m_out", "v_out")),
+    ("g_stride", _LL), ("width", _I), ("lr", ctypes.c_float)])
+AdamArgs = _struct("AdamArgs", [
+    ("field", AdamField * ADAM_MAX_FIELDS),
+    *((f, _P) for f in ("counts", "counts_out", "visibility", "alive")),
+    ("n", _LL), ("n_fields", _I), ("eps", ctypes.c_float)])
+
+# the loss kernels' argument blocks (`csrc/loss.cu`); a pointer left None is
+# NULL
+LOSS_TAPS = 11
+LossFwdArgs = _struct("LossFwdArgs", [
+    *((f, _P) for f in ("x", "y", "px", "py", "block_sums", "loss", "l1", "ssim")),
+    ("h", _I), ("w", _I), ("taps", ctypes.c_float * LOSS_TAPS),
+    *((f, ctypes.c_float) for f in ("c1", "c2", "lam", "olam"))])
+LossBwdArgs = _struct("LossBwdArgs", [
+    *((f, _P) for f in ("a", "b", "partials", "g_loss", "g_l1", "g_ssim", "grad")),
+    ("h", _I), ("w", _I), ("taps", ctypes.c_float * LOSS_TAPS),
+    *((f, ctypes.c_float) for f in ("lam", "olam", "inv_n"))])
 
 
 def nvcc_path() -> str:

@@ -17,6 +17,7 @@ it is. The JAX PRNG key becomes a `torch.Generator` on the state's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -33,6 +34,12 @@ from gsplat_tpu_torch.train.densify import (
     zero_stats,
 )
 from gsplat_tpu_torch.train.optim import adam_update, adam_update_dense, make_lr_tree
+
+
+@functools.cache
+def _screen_scale(width: int, height: int, device) -> torch.Tensor:
+    """(0.5 W, 0.5 H) on `device`, copied there once per image size."""
+    return torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -132,24 +139,19 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
             # densification stats: the reference accumulates ||dL/d mean2D||
             # in its NDC-ish scaling = pixel grad * (0.5 W, 0.5 H)
             # (`backward.cu:626-627`, `gaussian_model.py:471-473`)
-            scale_vec = torch.tensor([0.5 * camera.width, 0.5 * camera.height],
-                                     dtype=torch.float32, device=dev)
-            grad_norm = torch.linalg.vector_norm(screen_grads * scale_vec, dim=-1)
+            grad_norm = torch.linalg.vector_norm(
+                screen_grads * _screen_scale(camera.width, camera.height, dev), dim=-1)
             visibility = out["visibility"]
             stats = accumulate_stats(state.stats, grad_norm, visibility, out["radii"])
 
+            # learning rates as floats (no copy to the device); dead rows keep
+            # their parameters (their grads are zero; keep it airtight)
             lr_tree = make_lr_tree(xyz_lr, opt.feature_lr, opt.opacity_lr, opt.scaling_lr,
                                    opt.rotation_lr)
             new_params, new_m, new_v, new_counts = adam_update(
                 state.params, param_grads, state.adam_m, state.adam_v, state.adam_counts,
-                lr_tree, visibility=visibility if sparse else None,
+                lr_tree, visibility=visibility if sparse else None, alive=state.alive,
             )
-            # dead rows must not drift (their grads are zero; keep it airtight)
-            new_params = {
-                k: torch.where(state.alive.reshape((-1,) + (1,) * (v.dim() - 1)), v,
-                               state.params[k])
-                for k, v in new_params.items()
-            }
             if use_exposure:
                 new_exp, exp_m, exp_v, exp_step = adam_update_dense(
                     state.exposure, grads[-1], state.exp_m, state.exp_v, state.exp_step,
