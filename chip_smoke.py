@@ -120,11 +120,16 @@ JSON line per phase:
    bound and its twin (the unfused update and freeze it replaced);
    `loss`: the loss kernels (`loss_fwd`, `loss_bwd`) against their twins
    on the train frame's render and target and on seeded pairs at
-   1920x1080, 400x304, 200x120, 16x16 and 11x5: the partial maps of both
-   images and both gradients bit for bit (int32 views), the loss, L1 and
-   SSIM means bit for bit (the twin sums in the kernel's order);
-   timed beside their bounds, their twins and the `F.conv2d` route they
-   replaced (`photometric_loss_conv`);
+   1920x1080, 400x304, 200x120, 16x16, 11x5, the forward's 64x16 and the
+   backward's 64x24 tile +-1 on each axis and 4x40 (narrower than the
+   halo): the partial maps of both images and both gradients bit for bit
+   (int32 views), the loss, L1 and SSIM means bit for bit (the twin sums
+   in the kernel's order), the forward run twice back to back and equal
+   both times (its counter of finished blocks is zero again after each
+   launch); timed beside their bounds, their float32 issue floors, their
+   twins and the `F.conv2d` route they replaced (`photometric_loss_conv`),
+   with each kernel's registers, shared memory per block and blocks per
+   SM;
 15. K4' (`reduce_by_gid`) against `index_add_` at that frame's K and N, with
    pack_bf16 off and on and against the sum of bf16-rounded rows: per-row
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
@@ -2129,7 +2134,14 @@ ADAM_OPS_PER_ELEMENT = 14
 # 126; sign, the two coefficients' products and the combination 11
 LOSS_FWD_OPS_PER_VALUE = 261
 LOSS_BWD_OPS_PER_VALUE = 137
-LOSS_SIZES = ((1920, 1080), (400, 304), (200, 120), (16, 16), (11, 5))  # W x H
+# W x H: seeded pairs; the forward's 64 x 16 tile and the backward's 64 x 24
+# tile +-1 on each axis; a width under the 5-pixel halo
+LOSS_SIZES = ((1920, 1080), (400, 304), (200, 120), (16, 16), (11, 5), (63, 15), (65, 17),
+              (63, 23), (65, 25), (4, 40))
+# the float32 pipe's issue rate, one multiply or add per lane and clock
+# (132 SMs x 128 lanes x 1.98 GHz): the loss kernels' floor, since
+# -fmad=false issues each multiply and add apart
+FP32_ISSUE_PER_S = 33.5e12
 ADAM_COUNTS = (0, 1, 30_000)
 
 
@@ -2220,16 +2232,17 @@ def loss_check(what, x, y, lam, taps):
     (d loss = 1) and with all three given."""
     from gsplat_tpu_torch.train import losses
 
-    got = losses.loss_fwd(x, y, lam, True, True, taps)
     want = losses.loss_fwd_torch(x, y, lam, True, True, taps)
-    for i, name in ((3, "x"), (4, "y")):
-        check(bitwise_equal(got[i], want[i]), f"loss_fwd, {what}: the {name} partial maps differ "
-              f"from the twin's")
-    g, t = [float(v) for v in got[:3]], [float(v) for v in want[:3]]
-    rel = {k: abs(a - b) / abs(b) for k, a, b in zip(("loss", "l1", "ssim"), g, t)}
-    check(all(bitwise_equal(a, b) for a, b in zip(got[:3], want[:3])),
-          f"loss_fwd, {what}: means differ from the twin's: {dict(zip(rel, g))} against "
-          f"{dict(zip(rel, t))}")
+    for launch in ("first", "second"):  # back to back: the ticket is zero again
+        got = losses.loss_fwd(x, y, lam, True, True, taps)
+        for i, name in ((3, "x"), (4, "y")):
+            check(bitwise_equal(got[i], want[i]), f"loss_fwd, {what}, {launch} launch: the "
+                  f"{name} partial maps differ from the twin's")
+        g, t = [float(v) for v in got[:3]], [float(v) for v in want[:3]]
+        rel = {k: abs(a - b) / abs(b) for k, a, b in zip(("loss", "l1", "ssim"), g, t)}
+        check(all(bitwise_equal(a, b) for a, b in zip(got[:3], want[:3])),
+              f"loss_fwd, {what}, {launch} launch: means differ from the twin's: "
+              f"{dict(zip(rel, g))} against {dict(zip(rel, t))}")
     one = torch.ones((), device=x.device)
     for grads in ((one, None, None), (one, 0.25 * one, -0.5 * one)):
         for a, b, part in ((x, y, got[3]), (y, x, got[4])):
@@ -2277,12 +2290,32 @@ def kernel_rows_loss(fwd_args, device):
           f"a loss kernel under its bound: {fwd_ms} / {fwd_bound[0]}, {bwd_ms} / {bwd_bound[0]}")
     err = max(c["mean_abs_err"] for c in cases)
     rel = max(max(c["mean_rel_err"].values()) for c in cases)
+    # the issue floors are computed, not measured: they go on the `loss`
+    # phase line only (main pops `loss_facts` before the kernels line)
+    floor = {k: n * ops / FP32_ISSUE_PER_S * 1e3
+             for k, ops in (("loss_fwd", LOSS_FWD_OPS_PER_VALUE),
+                            ("loss_bwd", LOSS_BWD_OPS_PER_VALUE))}
     return {"loss_fwd": measured(fwd_ms, fwd_plain, fwd_bound, err, rel,
                                  replaced_route_ms=route_fwd, partials_bitwise=True,
                                  cases=cases),
             "loss_bwd": measured(bwd_ms, bwd_plain, bwd_bound, 0.0, 0.0,
                                  replaced_route_ms=route_both - route_fwd,
-                                 replaced_route_fwd_bwd_ms=route_both)}
+                                 replaced_route_fwd_bwd_ms=route_both),
+            "loss_facts": {"fp32_issue_floor_ms": floor, "occupancy": loss_kernel_info()}}
+
+
+def loss_kernel_info():
+    """Each loss kernel as built and launched (`gs_loss_info`): registers
+    per thread, shared memory per block in bytes, blocks per SM."""
+    import ctypes
+
+    from gsplat_tpu_torch import _kernels
+
+    out = (ctypes.c_int * 6)()
+    _kernels.check(_kernels.load("loss").gs_loss_info(out), "gs_loss_info")
+    keys = ("registers", "shared_bytes_per_block", "blocks_per_sm")
+    return {name: dict(zip(keys, out[3 * i:3 * i + 3]))
+            for i, name in enumerate(("loss_fwd", "loss_bwd"))}
 
 
 def phase_densify(state):
@@ -3885,18 +3918,20 @@ def sass_projection():
 def sass_step_kernels():
     """The Adam and loss kernels as built: registers, stack, shared and
     local memory (`cuobjdump -res-usage`) and the local loads and stores
-    in their SASS, per kernel function. A spill is recorded, not refused."""
+    in their SASS, per kernel function (the loss forward's two
+    instantiations apart: `<false>` as training launches it, `<true>` with
+    the ground truth's partials). A spill is recorded, not refused."""
     out = {}
-    for source, parts in (("adam", ("adam_rows_kernel",)),
-                          ("loss", ("loss_fwd_kernel_finish", "loss_fwd_kernel",
-                                    "loss_bwd_kernel"))):
+    for source, parts in (("adam", (("adam_rows_kernel", 1),)),
+                          ("loss", (("loss_fwd_kernel", 2), ("loss_bwd_kernel", 1)))):
         ops, use = sass_counts(source), res_usage(source)
-        for part in parts:
-            hits = [f for f in use if part in f and not (part == "loss_fwd_kernel"
-                                                         and "finish" in f)]
-            check(len(hits) == 1, f"{part}: {len(hits)} functions in lib{source}")
-            o = ops.get(hits[0], {})
-            out[part] = {**use[hits[0]], "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
+        for part, n in parts:
+            hits = sorted(f for f in use if part in f)
+            check(len(hits) == n, f"{part}: {len(hits)} functions in lib{source}, want {n}")
+            for f in hits:
+                name = part if n == 1 else f"{part}<{'true' if 'ILb1E' in f else 'false'}>"
+                o = ops.get(f, {})
+                out[name] = {**use[f], "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
     return out
 
 
@@ -4219,12 +4254,15 @@ def main() -> int:
     emit(phase="adam", cases=adam["cases"], ms=adam["ms"], plain_ms=adam["plain_ms"],
          bound_ms=adam["bound_ms"], rows=adam["rows"], alive=adam["alive"],
          grad_strides=adam["grad_strides"], sass=adam["sass"])
-    measures["loss_fwd"]["sass"] = {k: step_sass[k] for k in ("loss_fwd_kernel",
-                                                              "loss_fwd_kernel_finish")}
+    measures["loss_fwd"]["sass"] = {k: v for k, v in step_sass.items()
+                                    if k.startswith("loss_fwd_kernel")}
     measures["loss_bwd"]["sass"] = step_sass["loss_bwd_kernel"]
+    facts = measures.pop("loss_facts")
     emit(phase="loss", cases=measures["loss_fwd"]["cases"],
          **{f"{k}_{f}": measures[k][f] for k in ("loss_fwd", "loss_bwd")
             for f in ("ms", "plain_ms", "bound_ms", "replaced_route_ms")},
+         **{f"{k}_{f}": facts[f][k] for k in ("loss_fwd", "loss_bwd")
+            for f in ("fp32_issue_floor_ms", "occupancy")},
          sass={k: measures[k]["sass"] for k in ("loss_fwd", "loss_bwd")})
     # the warp cull of K2' and K3' on the flagship frames, and the blend
     # kernels' build facts, beside their rows

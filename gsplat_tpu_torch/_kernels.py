@@ -82,7 +82,7 @@ _SIGNATURES = {
         "gs_project_bwd": (_P, _P, _P, _I, _I, _P),
     },
     "adam": {"gs_adam_rows": (_P, _P)},
-    "loss": {"gs_loss_fwd": (_P, _P), "gs_loss_bwd": (_P, _P)},
+    "loss": {"gs_loss_fwd": (_P, _P), "gs_loss_bwd": (_P, _P), "gs_loss_info": (_P,)},
 }
 
 
@@ -121,10 +121,10 @@ AdamArgs = _struct("AdamArgs", [
     ("n", _LL), ("n_fields", _I), ("eps", ctypes.c_float)])
 
 # the loss kernels' argument blocks (`csrc/loss.cu`); a pointer left None is
-# NULL
+# NULL; `ticket` is the forward's zeroed counter of finished blocks
 LOSS_TAPS = 11
 LossFwdArgs = _struct("LossFwdArgs", [
-    *((f, _P) for f in ("x", "y", "px", "py", "block_sums", "loss", "l1", "ssim")),
+    *((f, _P) for f in ("x", "y", "px", "py", "block_sums", "loss", "l1", "ssim", "ticket")),
     ("h", _I), ("w", _I), ("taps", ctypes.c_float * LOSS_TAPS),
     *((f, ctypes.c_float) for f in ("c1", "c2", "lam", "olam"))])
 LossBwdArgs = _struct("LossBwdArgs", [

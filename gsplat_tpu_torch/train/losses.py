@@ -121,9 +121,9 @@ def _ssim_partials(mu1, mu2, s1, s2, s12):
     return d_mu1, d_p, d_q
 
 
-_TILE = 16  # the forward kernel's output tile, TILE x TILE pixels
+_TILE = 16  # the tile of the means' float sums, TILE x TILE pixels
 _WARP = 32
-_FINISH_THREADS = 1024  # the threads of its one-block finishing kernel
+_FINISH_THREADS = 1024  # the lanes of their double sum
 
 
 def _kernel_order_mean(v):
@@ -208,10 +208,19 @@ def _check_images(image, gt, what):
         raise ValueError(f"{what}: images must be contiguous")
 
 
+@functools.cache
+def _ticket(device):
+    """The forward kernel's counter of finished blocks on `device`: zero
+    before each launch, and the launch's last block zeroes it again, so
+    launches on one stream share it (not launches on two streams at
+    once)."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def loss_fwd(image, gt, lam, want_x, want_y, taps):
-    """The forward kernel (`gs_loss_fwd`, `csrc/loss.cu`) on the card:
-    `loss_fwd_torch`'s partial maps and means bit for bit. CUDA tensors
-    only."""
+    """The forward kernel (`gs_loss_fwd`, `csrc/loss.cu`), one launch, on
+    the card: `loss_fwd_torch`'s partial maps and means bit for bit. CUDA
+    tensors only."""
     from gsplat_tpu_torch import _kernels
 
     _check_images(image, gt, "loss_fwd")
@@ -225,7 +234,8 @@ def loss_fwd(image, gt, lam, want_x, want_y, taps):
               for want in (want_x, want_y))
     sums = torch.empty((2, blocks), **f32)
     loss, ll1, ss = (torch.empty((), **f32) for _ in range(3))
-    ptr = [None if t is None else t.data_ptr() for t in (image, gt, px, py, sums, loss, ll1, ss)]
+    ptr = [None if t is None else t.data_ptr()
+           for t in (image, gt, px, py, sums, loss, ll1, ss, _ticket(image.device))]
     args = _kernels.LossFwdArgs(*ptr, h, w, (ctypes.c_float * _kernels.LOSS_TAPS)(*taps),
                                 _C1, _C2, lam, 1.0 - lam)
     lib = _kernels.load("loss")
