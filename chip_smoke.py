@@ -13,7 +13,9 @@ JSON line per phase:
    then `sass`: each probe kernel's instruction counts from `cuobjdump
    -sass` of the built libraries: the skeletons P1' and P2' keep their ten
    staging stores and their barriers, and no P3'/P4' kernel spills to local
-   memory or holds fewer float instructions than one unrolled iteration;
+   memory or holds fewer float instructions in its hot loop than one
+   iteration needs; that loop's counts by pipe (`probes/floors.py`: issue,
+   FMA, compare and logic, MUFU, shuffle, shared-memory wavefronts);
    K2' and K3' touch no local memory (`cuobjdump -res-usage` and no
    LDL/STL), K2' issues no shuffle and K3' at most the 31 of its
    reduce-scatter (its registers and `SHFL` count go on the kernels line);
@@ -247,8 +249,16 @@ JSON line per phase:
 20. the op-rate probes (`probe_ops`): every P3' variant (1000 iterations)
    and P4' at float32 and bf16, (256, 128) and (512, 128) (2000
    iterations), each against its twin on the card (float32: within 1e-6 of
-   max |want|; bf16: within 2 bf16 ulps per element), with its time per
-   iteration, its per-SM bound, the per-op costs and the bf16 speedups;
+   max |want|; bf16: within 2 bf16 ulps per element; whether bit for bit),
+   with its time per iteration, its per-SM bound, the per-op costs and the
+   bf16 speedups; on this phase's line (not the kernels line, which holds
+   only what was measured or counted) each row's pipe floors from the
+   `sass` phase's loop counts at the SM clock a spinning block measures
+   (`gs_sm_clock`, beside `nvidia-smi`'s clocks), its limiter and its time
+   over the limiter's floor; `k_div`'s reciprocal bit for bit `1.0 / x` on
+   every float32 in [1, 2), and `k_div` bit for bit its twin on its own
+   inputs and where denominators leave [1, 2) (then it reruns with the
+   IEEE division in the same launch, and reports so);
 21. the probe path (`probe_path`): the entry points of the three probe
    modules (`ablate.main`, `op_rate.main`, `bf16_rate.main`, as `python -m
    gsplat_tpu_torch.probes.<name>` runs them) with the counts reset just
@@ -264,7 +274,8 @@ JSON line per phase:
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
-   P3' and P4'; the COLMAP train path's, the bench's and the entry's counts
+   P3' and P4', their hot loops' counts by pipe and the SM clock; the COLMAP
+   train path's, the bench's and the entry's counts
    beside them, and those of the checkpoint runs A and B, the direct
    `evaluate_test`, the two train CLI runs of `train_cli_ckpt`, the
    viewer, the quality run, each mesh's checked step summed over its ranks
@@ -3758,17 +3769,21 @@ def phase_train_cli_mesh():
             "checkpoint_rows": int(ckpt["state"]["alive"].shape[0]), "launches": launches}
 
 
+def sass_text(source):
+    """`cuobjdump -sass` of a built library."""
+    from gsplat_tpu_torch import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(_kernels.library_path(source))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+
+
 def sass_counts(source, full=False):
     """{kernel function: {opcode: count}} of a built library, from
     `cuobjdump -sass`; with `full` the key is the whole mnemonic, its
     modifiers included (`RED.E.ADD...`)."""
-    from gsplat_tpu_torch import _kernels
-
-    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "-sass", str(_kernels.library_path(source))],
-                         capture_output=True, text=True, timeout=120, check=True)
     counts, cur = {}, None
-    for line in res.stdout.splitlines():
+    for line in sass_text(source).splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
             cur = counts.setdefault(head.group(1), {})
@@ -3781,40 +3796,11 @@ def sass_counts(source, full=False):
     return counts
 
 
-SASS_FP = ("FADD", "FMUL", "FFMA", "MUFU", "HADD2", "HMUL2", "HFMA2")
-# (part of the mangled name in libprobe_ops, least float instructions of one
-# unrolled iteration of a thread). The static count cannot show that every
-# row is computed in every iteration (a compiler may move a row's work under
-# a branch that rarely runs); the kernels rule that out by storing every row
-# unconditionally, and `phase_probe_ops` checks that none runs under its bound
-SASS_PROBES = {
-    "op_cumprod": ("elementwise_kernelILi0E", 16 * 32),
-    "op_vpu9": ("elementwise_kernelILi1E", 16 * 4 * 8),
-    "op_exp": ("elementwise_kernelILi2E", 16 * 4 * 3),
-    "op_div": ("elementwise_kernelILi3E", 16 * 4 * 3),
-    "op_cvpu": ("contract4_kernelILb0E", 16 * 4 * 7),
-    "op_cmatmul": ("contract4_kernelILb1E", 16 * 4 * 4),
-    "op_two_matmuls": ("two_matmuls_kernel", 64 * 11),
-    "op_merged": ("merged_kernel", 64 * 21),
-    "op_fwd_accum": ("fwd_accum_kernel", 32 * 5),
-    **{f"op_kappa{k}": (f"kappa_kernelILi{k}E", k * 16 * 4 * 8) for k in (1, 2, 4)},
-    "blend_mix_f32": ("blend_mix_f32_kernel", 8 * 8),
-    "blend_mix_bf16": ("blend_mix_bf16_kernel", 8 * 7),
-}
-
-
 def res_usage(source):
-    """{kernel function: {REG, STACK, SHARED, LOCAL}} of a built library,
-    from `cuobjdump -res-usage`."""
+    """{kernel function: {REG, STACK, SHARED, LOCAL}} of a built library."""
     from gsplat_tpu_torch import _kernels
 
-    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "-res-usage", str(_kernels.library_path(source))],
-                         capture_output=True, text=True, timeout=120, check=True)
-    return {m.group(1): {k: int(m.group(i + 2)) for i, k in enumerate(("REG", "STACK", "SHARED",
-                                                                       "LOCAL"))}
-            for m in re.finditer(r"Function\s+(\S+?):\s+REG:(\d+)\s+STACK:(\d+)\s+"
-                                 r"SHARED:(\d+)\s+LOCAL:(\d+)", res.stdout)}
+    return _kernels.res_usage(_kernels.library_path(source))
 
 
 # K3''s reduce-scatter: 31 shuffles per group of 3 instances (a five-level
@@ -3938,29 +3924,27 @@ def sass_step_kernels():
 def phase_sass():
     """Instruction counts of the probe kernels: the skeletons keep their ten
     staging stores (volatile, so nothing may drop them) and their barriers;
-    no P3'/P4' kernel spills, and each holds at least one unrolled
-    iteration's float instructions. Then the blend kernels' build facts
-    (`sass_blend`)."""
-    libs = {src: sass_counts(src) for src in ("probe_skeleton", "probe_ops")}
+    no P3'/P4' kernel spills, and each one's hot loop (`probes/floors.py`)
+    holds at least one iteration's float instructions; its counts by pipe
+    (`per_iteration`) give `phase_probe_ops` its floors. Then the blend
+    kernels' build facts (`sass_blend`)."""
+    from gsplat_tpu_torch.probes import floors
 
-    def find(src, part):
-        hits = [f for f in libs[src] if part in f]
-        check(len(hits) == 1, f"{part}: {len(hits)} functions in lib{src}")
-        return libs[src][hits[0]]
-
+    skel = sass_counts("probe_skeleton")
     out = {}
     for name, part in (("skel_fwd", "skel_fwd_kernel"), ("skel_bwd", "skel_bwd_kernel")):
-        ops = find("probe_skeleton", part)
+        ops = one_function(skel, part, name)
         check(ops.get("STS", 0) >= 10, f"{name}: {ops.get('STS', 0)} shared stores, want the ten rows")
         check(ops.get("BAR", 0) >= 2, f"{name}: lost its barriers")
         out[name] = {k: ops.get(k, 0) for k in ("STS", "LDS", "LDG", "STG", "BAR", "BRA")}
-    for name, (part, body) in SASS_PROBES.items():
-        ops = find("probe_ops", part)
-        fp = sum(ops.get(k, 0) for k in SASS_FP)
-        check(fp >= body, f"{name}: {fp} float instructions, want >= {body}")
-        check(not ops.get("LDL") and not ops.get("STL"), f"{name}: spills to local memory")
-        out[name] = {"float": fp, "least": body,
-                     "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
+    for name, got in floors.probe_loops(sass_text("probe_ops")).items():
+        _, least, uniform = floors.SASS_PROBES[name]
+        fn, loop_fp = got["function"], got["float_per_body"]
+        check(not fn["LDL"] and not fn["STL"], f"{name}: spills to local memory")
+        check(loop_fp >= least, f"{name}: {loop_fp} float instructions in its loop, want >= {least}")
+        out[name] = {"float": sum(fn[k] for k in floors.FLOAT), "loop_float": loop_fp,
+                     "least": least, "per_iteration": got["per_body"], "uniform": list(uniform),
+                     "loop_opcodes": dict(got["loop"].most_common(20))}
     out.update(sass_blend())
     out.update(sass_k1_k4())
     out["projection"] = sass_projection()
@@ -4023,10 +4007,79 @@ def phase_probe_skeleton(device, render_instances, k3_args):
     return summary, rows
 
 
-def phase_probe_ops(device):
+def sm_clock(device):
+    """The SM clock in Hz while one block spins (`gs_sm_clock`: clock64
+    cycles over %globaltimer ns, about 10 ms), beside what `nvidia-smi`
+    reads right after."""
+    from gsplat_tpu_torch import _kernels
+
+    lib = _kernels.load("probe_ops")
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    for _ in range(2):  # the first spin lets the clock rise
+        _kernels.check(lib.gs_sm_clock(out.data_ptr(), 20_000_000, _kernels.stream(device)),
+                       "gs_sm_clock")
+    cycles, ns = (int(v) for v in out.tolist())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip()
+    return cycles / ns * 1e9, smi
+
+
+def rcp_check(device):
+    """`k_div`'s reciprocal against `1.0 / x` on every float32 in [1, 2),
+    bit for bit; and `k_div` itself, through its entry point, on the
+    probe's inputs (no rerun) and on inputs whose denominators leave
+    [1, 2) (x times 1e4: it reruns with the IEEE division, `sink[0]` = 1),
+    bit for bit its twin both times; the second also holds an infinite x,
+    whose reciprocal's Newton step makes NaN where 1 / inf is 0, so only
+    the rerun gives the twin's output."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.probes import op_rate
+
+    x = torch.arange(0x3F800000, 0x40000000, dtype=torch.int32, device=device).view(torch.float32)
+    bad = int((op_rate.rcp_1_2(x).view(torch.int32) != (1.0 / x).view(torch.int32)).sum())
+    check(bad == 0, f"k_div's reciprocal differs from 1 / x on {bad} floats in [1, 2)")
+    lib = _kernels.load("probe_ops")
+    (base,) = op_rate.inputs("div", device)
+    out = {"values": x.numel(), "mismatches": bad}
+    for key, scale, rerun in (("div_in_range", 1.0, 0), ("div_fallback", 1e4, 1)):
+        xs = base * scale
+        if rerun:
+            xs[5, 7] = float("inf")
+        d = 1.5 + xs * 1e-3
+        outside = int(((d < 1) | (d >= 2)).sum())
+        got, sink = torch.empty_like(xs), torch.full((op_rate.SINK_WORDS,), 7, dtype=torch.int32,
+                                                      device=device)
+        _kernels.check(lib.gs_op_elementwise(3, xs.data_ptr(), got.data_ptr(), sink.data_ptr(),
+                                             op_rate.N_IT, op_rate.DEP_ROW,
+                                             _kernels.stream(device)), "k_div")
+        twin = op_rate.TWINS["div"](xs)
+        check((outside > 0) == bool(rerun) and int(sink[0]) == rerun and torch.equal(got, twin),
+              f"k_div with {outside} denominators outside [1, 2): rerun {int(sink[0])}, max abs "
+              f"err {float((got - twin).abs().max())}")
+        out[key] = {"denominators_outside": outside, "reran": rerun, "bitwise_equal": True}
+    return out
+
+
+def phase_probe_ops(device, sass):
     """Every P3' variant and P4' at each dtype and shape against its twin on
-    the card, timed; bounds on one SM."""
-    from gsplat_tpu_torch.probes import bf16_rate, op_rate
+    the card, timed; bounds on one SM; the floors of each kernel's pipes
+    from its loop's SASS counts (`sass`, from `phase_sass`) at the SM clock
+    measured here; `k_div`'s reciprocal on every float in [1, 2)."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.probes import bf16_rate, floors, op_rate
+
+    clock_hz, smi_clocks = sm_clock(device)
+    per_pass = floors.loop_shape(_kernels.load("probe_ops"))
+    pipe_floors = {}
+
+    def counted(row, kernel, bodies):
+        """The row's counted keys (its kernel's loop counts); its floors,
+        computed from them, go to the phase line (`floors`), not to the
+        kernels line."""
+        per = sass[kernel]["per_iteration"]
+        pipe_floors[row] = {**floors.floors(per, bodies, clock_hz), "bodies": bodies}
+        return {"sm_clock_mhz": clock_hz / 1e6, "loop_per_iteration": per}
 
     rows, us = {}, {}
     for name, v in op_rate.VARIANTS.items():
@@ -4041,9 +4094,11 @@ def phase_probe_ops(device):
         us[name] = ms * 1e3 / op_rate.N_IT
         bnd = (v.flops * op_rate.N_IT / (FP32_FLOPS / SMS) * 1e3, "operations")
         check(ms >= bnd[0], f"P3' {name} ran in {ms} ms, under its bound {bnd[0]}: work was skipped")
-        rows[f"op_{name}"] = measured(ms, plain_ms, bnd, err, err / scale, label=v.label,
-                                      us_per_iteration=us[name], bound_basis="one SM",
-                                      bitwise_equal=bool(torch.equal(got, want)))
+        row = f"op_{name}"
+        rows[row] = measured(ms, plain_ms, bnd, err, err / scale, label=v.label,
+                             us_per_iteration=us[name], bound_basis="one SM",
+                             bitwise_equal=bool(torch.equal(got, want)),
+                             **counted(row, row, per_pass[row] * op_rate.N_IT))
     mix_ms = {}
     for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for shape in bf16_rate.SHAPES:
@@ -4066,16 +4121,26 @@ def phase_probe_ops(device):
             rate = (FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS) / SMS
             bnd = (bf16_rate.OPS[dtype] * x.numel() * bf16_rate.K / rate * 1e3, "operations")
             check(ms >= bnd[0], f"P4' {row} ran in {ms} ms, under its bound {bnd[0]}")
+            kernel = f"blend_mix_{key}"
             rows[row] = measured(ms, plain_ms, bnd, err, rel, bound_basis="one SM",
                                  max_ulps=ulps, bitwise_equal=bool(torch.equal(got, want)),
-                                 ns_per_element_iteration=ms * 1e6 / (x.numel() * bf16_rate.K))
+                                 ns_per_element_iteration=ms * 1e6 / (x.numel() * bf16_rate.K),
+                                 **counted(row, kernel,
+                                           x.numel() / per_pass[kernel] * bf16_rate.K))
     summary = {
+        "sm_clock_mhz": clock_hz / 1e6,
+        "nvidia_smi_clocks_sm_max_sm": smi_clocks,
+        "reciprocal": rcp_check(device),
         "us_per_iteration": us,
         "per_op_cost_ns": us["vpu9"] / 9 * 1e3,
         "per_chunk_us": {k: us[f"kappa{k}"] / k for k in (1, 2, 4)},
         "p4_ms": mix_ms,
         "bf16_speedup_same_shape": mix_ms["blend_mix_f32"] / mix_ms["blend_mix_bf16"],
         "bf16_speedup_512": mix_ms["blend_mix_f32_512"] / mix_ms["blend_mix_bf16_512"],
+        "floors": {k: {**f, "ms_over_limiter_floor": rows[k]["ms"] / f["limiter_floor_ms"]}
+                   for k, f in pipe_floors.items()},
+        "limiters": {k: (f["limiter"], rows[k]["ms"] / f["limiter_floor_ms"])
+                     for k, f in pipe_floors.items()},
     }
     return summary, rows
 
@@ -4353,7 +4418,7 @@ def main() -> int:
     emit(phase="train_cli_mesh", **cli_mesh_summary, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    ops_summary, ops_rows = phase_probe_ops(device)
+    ops_summary, ops_rows = phase_probe_ops(device, sass)
     emit(phase="probe_ops", **ops_summary, seconds=time.perf_counter() - t)
     measures.update(ops_rows)
     t = time.perf_counter()

@@ -22,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -66,15 +67,21 @@ _SIGNATURES = {
         "gs_skel_fwd": (_P, _LL, _P, _P, _I, _P, _P),
         "gs_skel_bwd": (_P, _LL, _P, _P, _I, _P, _P, _P, _P),
     },
+    # the P3' kernels take a `sink` pointer after their output: the others'
+    # checksums, `k_div`'s report of its IEEE-division rerun; those after
+    # the elementwise ones no longer take the fed-back row
     "probe_ops": {
-        "gs_op_elementwise": (_I, _P, _P, _I, _I, _P),
-        "gs_op_contract4": (_P, _P, _P, _I, _I, _I, _P),
-        "gs_op_two_matmuls": (_P, _P, _P, _P, _P, _I, _I, _P),
-        "gs_op_merged": (_P, _P, _P, _P, _I, _I, _I, _P),
-        "gs_op_fwd_accum": (_P, _P, _P, _I, _I, _P),
-        "gs_op_kappa": (_P, _P, _P, _I, _I, _I, _P),
+        "gs_op_elementwise": (_I, _P, _P, _P, _I, _I, _P),
+        "gs_rcp_check": (_P, _P, _I, _P),
+        "gs_op_contract4": (_P, _P, _P, _P, _I, _I, _P),
+        "gs_op_two_matmuls": (_P, _P, _P, _P, _P, _P, _I, _P),
+        "gs_op_merged": (_P, _P, _P, _P, _P, _I, _P),
+        "gs_op_fwd_accum": (_P, _P, _P, _P, _I, _P),
+        "gs_op_kappa": (_P, _P, _P, _P, _I, _I, _P),
         "gs_blend_mix_f32": (_P, _P, _I, _I, _P),
-        "gs_blend_mix_bf16": (_P, _P, _I, _I, _P),
+        "gs_blend_mix_bf16": (_P, _P, _I, _I, _I, _P),
+        "gs_sm_clock": (_P, _LL, _P),
+        "gs_probe_loop_shape": (_P, _I),
     },
     # the argument blocks are the structures below, passed by pointer
     "projection": {
@@ -190,18 +197,36 @@ def build_all(names=SOURCES) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def open_library(path: Path, name: str) -> ctypes.CDLL:
+    """A built library of `csrc/<name>.cu` (or of a variant of it), its
+    entry points bound to their signatures."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use."""
     job = _start_build(name)
     if job is not None:
         _finish_build(job)
-    lib = ctypes.CDLL(str(library_path(name)))
-    for fn, argtypes in _SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-    return lib
+    return open_library(library_path(name), name)
+
+
+def res_usage(path: Path) -> dict:
+    """{kernel function: {REG, STACK, SHARED, LOCAL}} of a built library,
+    from `cuobjdump -res-usage` (a spill shows in STACK and LOCAL)."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    keys = ("REG", "STACK", "SHARED", "LOCAL")
+    return {m.group(1): dict(zip(keys, map(int, m.groups()[1:])))
+            for m in re.finditer(r"Function\s+(\S+?):\s+REG:(\d+)\s+STACK:(\d+)\s+"
+                                 r"SHARED:(\d+)\s+LOCAL:(\d+)", text)}
 
 
 def stream(device) -> int:

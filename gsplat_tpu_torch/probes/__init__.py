@@ -9,7 +9,10 @@ in `csrc/` with a plain PyTorch twin, a launch counter and a `main()`:
 - `op_rate`: P3' (`csrc/probe_ops.cu`), the per-iteration cost of the
   blend's building blocks on one SM (`scripts/probe_mm.py`);
 - `bf16_rate`: P4' (`csrc/probe_ops.cu`), the forward blend's op mix in
-  float32 and in packed bf16 arithmetic (`scripts/probe_r5_bf16vpu.py`).
+  float32 and in packed bf16 arithmetic (`scripts/probe_r5_bf16vpu.py`);
+- `floors`: no probe but the floors of a probe kernel's SM pipes (issue,
+  FMA, ALU, MUFU, shuffle, shared memory) from its SASS, which
+  `chip_smoke.py` reports beside each P3'/P4' time.
 
 Run one with `python -m gsplat_tpu_torch.probes.<name>`: on the card by
 default (it raises without one), or with `--device cpu` as a rehearsal that

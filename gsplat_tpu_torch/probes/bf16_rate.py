@@ -16,7 +16,10 @@ Per element, `K` = 2000 iterations from acc = x (`probe_r5_bf16vpu.py:41-55`):
 only) run it on one block, in float32 and in packed bf16 arithmetic
 (each mul and add rounded to bf16 on its own); `blend_mix_torch` is the
 plain twin for either dtype. Each wrapper counts its `launches`, and
-`launches_512` of them at 512 rows.
+`launches_512` of them at 512 rows. The bf16 kernel runs the keep compares
+packed in bf16 against `KEEP_BF16`, the least bf16 whose float value is >=
+1e-4f (`least_bf16_at_least`): for every bf16 b, float(b) >= 1e-4f exactly
+when b >= KEEP_BF16, so the packed gate decides as the float32 one.
 
     python -m gsplat_tpu_torch.probes.bf16_rate [--device cpu]
 
@@ -39,6 +42,18 @@ SHAPES = ((256, 128), (512, 128))
 # + 3 (the compares and their and) + 1 (select) + 2 (acc); bf16 adds the two
 # conversions to float32
 OPS = {torch.float32: 14, torch.bfloat16: 16}
+KEEP_MIN = 1e-4  # the keep threshold on a, compared in float32
+
+
+def least_bf16_at_least(value: float) -> int:
+    """Bit pattern of the least bf16 whose float value is >= float32(value)
+    (value > 0): bf16 is the top half of a float32, and positive floats order
+    as their bit patterns."""
+    bits = int(np.array(value, dtype=np.float32).view(np.uint32))
+    return (bits >> 16) + (bits & 0xFFFF != 0)
+
+
+KEEP_BF16 = least_bf16_at_least(KEEP_MIN)
 
 
 def inputs(shape, dtype, device="cpu", seed=0):
@@ -79,8 +94,10 @@ def _wrapper(dtype, entry):
         x = x.contiguous()
         out = torch.empty_like(x)
         lib = _kernels.load("probe_ops")
-        err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), x.numel(), n_it,
-                                  _kernels.stream(x.device))
+        args = (x.data_ptr(), out.data_ptr(), x.numel(), n_it)
+        if dtype == torch.bfloat16:
+            args += (KEEP_BF16,)
+        err = getattr(lib, entry)(*args, _kernels.stream(x.device))
         _kernels.check(err, launch.__name__)
         launch.launches += 1
         launch.launches_512 += x.shape[0] == 512

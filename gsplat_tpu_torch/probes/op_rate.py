@@ -21,6 +21,8 @@ Each has a kernel wrapper (`csrc/probe_ops.cu`, CUDA tensors only, with a
 `launches` counter) in `WRAPPERS` and a plain twin in `TWINS`, both called
 with the variant's inputs (`inputs`) and `n_it`. The twins compute the JAX
 bodies in torch; their contractions are `torch.matmul` in float32.
+`rcp_1_2` runs `k_div`'s reciprocal alone on a CUDA tensor, to hold it to
+`1.0 / x`.
 
     python -m gsplat_tpu_torch.probes.op_rate [--device cpu]
 
@@ -38,11 +40,14 @@ import torch
 
 N_IT = 1000
 # the row (for `fwd_accum` the column) of a result that feeds the next
-# iteration. The kernels take it as an argument and store every row in every
-# iteration (this one to the feedback buffer), so that no compiler can drop
-# the other rows' work before the last iteration
+# iteration. The elementwise kernels take it as an argument and store every
+# row in every iteration (this one to the feedback buffer); the others fold
+# every output into a checksum each thread writes to a sink buffer after
+# the loop (`SINK_WORDS`, allocated here and dropped). Either way no
+# compiler can drop the other rows' work before the last iteration
 DEP_ROW = 0
 DEP_SCALE = 1e-20
+SINK_WORDS = 1024  # one uint32 a thread of the largest block
 
 
 class Variant(NamedTuple):
@@ -199,18 +204,19 @@ TWINS = {
 # ------------------------------------------------------------- wrappers
 
 # each variant's C entry point, called with (library, input pointers, output
-# pointer, n_it, stream); `cvpu`'s unused (1, 1) input is not passed
+# pointer, sink pointer, n_it, stream); `cvpu`'s unused (1, 1) input is not
+# passed
 _ENTRY = {
-    "cumprod": lambda lib, p, o, n, st: lib.gs_op_elementwise(0, *p, o, n, DEP_ROW, st),
-    "vpu9": lambda lib, p, o, n, st: lib.gs_op_elementwise(1, *p, o, n, DEP_ROW, st),
-    "exp": lambda lib, p, o, n, st: lib.gs_op_elementwise(2, *p, o, n, DEP_ROW, st),
-    "div": lambda lib, p, o, n, st: lib.gs_op_elementwise(3, *p, o, n, DEP_ROW, st),
-    "cvpu": lambda lib, p, o, n, st: lib.gs_op_contract4(*p[:2], o, 0, n, DEP_ROW, st),
-    "cmatmul": lambda lib, p, o, n, st: lib.gs_op_contract4(*p, o, 1, n, DEP_ROW, st),
-    "two_matmuls": lambda lib, p, o, n, st: lib.gs_op_two_matmuls(*p, o, n, DEP_ROW, st),
-    "merged": lambda lib, p, o, n, st: lib.gs_op_merged(*p, o, n, DEP_ROW, 0, st),
-    "fwd_accum": lambda lib, p, o, n, st: lib.gs_op_fwd_accum(*p, o, n, DEP_ROW, st),
-    **{f"kappa{k}": (lambda lib, p, o, n, st, k=k: lib.gs_op_kappa(*p, o, k, n, DEP_ROW, st))
+    "cumprod": lambda lib, p, o, sk, n, st: lib.gs_op_elementwise(0, *p, o, sk, n, DEP_ROW, st),
+    "vpu9": lambda lib, p, o, sk, n, st: lib.gs_op_elementwise(1, *p, o, sk, n, DEP_ROW, st),
+    "exp": lambda lib, p, o, sk, n, st: lib.gs_op_elementwise(2, *p, o, sk, n, DEP_ROW, st),
+    "div": lambda lib, p, o, sk, n, st: lib.gs_op_elementwise(3, *p, o, sk, n, DEP_ROW, st),
+    "cvpu": lambda lib, p, o, sk, n, st: lib.gs_op_contract4(*p[:2], o, sk, 0, n, st),
+    "cmatmul": lambda lib, p, o, sk, n, st: lib.gs_op_contract4(*p, o, sk, 1, n, st),
+    "two_matmuls": lambda lib, p, o, sk, n, st: lib.gs_op_two_matmuls(*p, o, sk, n, st),
+    "merged": lambda lib, p, o, sk, n, st: lib.gs_op_merged(*p, o, sk, n, st),
+    "fwd_accum": lambda lib, p, o, sk, n, st: lib.gs_op_fwd_accum(*p, o, sk, n, st),
+    **{f"kappa{k}": (lambda lib, p, o, sk, n, st, k=k: lib.gs_op_kappa(*p, o, sk, k, n, st))
        for k in (1, 2, 4)},
 }
 
@@ -242,9 +248,10 @@ def _wrapper(name):
             raise ValueError(f"n_it must be >= 1, got {n_it}")
         dev = ops[0].device
         out = torch.empty(VARIANTS[name].out_shape, dtype=torch.float32, device=dev)
+        sink = torch.empty(SINK_WORDS, dtype=torch.int32, device=dev)
         lib = _kernels.load("probe_ops")
-        err = _ENTRY[name](lib, [a.data_ptr() for a in ops], out.data_ptr(), n_it,
-                           _kernels.stream(dev))
+        err = _ENTRY[name](lib, [a.data_ptr() for a in ops], out.data_ptr(), sink.data_ptr(),
+                           n_it, _kernels.stream(dev))
         _kernels.check(err, name)
         launch.launches += 1
         return out
@@ -257,6 +264,20 @@ def _wrapper(name):
 
 
 WRAPPERS = {name: _wrapper(name) for name in VARIANTS}
+
+
+def rcp_1_2(x):
+    """`k_div`'s reciprocal of every element of a float32 CUDA tensor:
+    correctly rounded for x in [1, 2), where `k_div` uses it."""
+    from gsplat_tpu_torch import _kernels
+
+    if not x.is_cuda or x.dtype != torch.float32:
+        raise ValueError("rcp_1_2 launches a CUDA kernel: x must be float32 on a CUDA device")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _kernels.check(_kernels.load("probe_ops").gs_rcp_check(
+        x.data_ptr(), out.data_ptr(), x.numel(), _kernels.stream(x.device)), "rcp_1_2")
+    return out
 
 
 def main(argv=None) -> dict:

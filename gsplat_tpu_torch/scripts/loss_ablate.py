@@ -4,9 +4,9 @@ turns on one seeded 1920x1080 pair.
 
     python gsplat_tpu_torch/scripts/loss_ablate.py [--reps 50] [--rounds 2]
 
-On the card only. Each variant is the committed source with a text edit
-(each edit must match, so a changed source fails loudly rather than timing
-the unchanged kernel):
+On the card only. Each variant is the committed source with a text edit,
+built by `scripts/ablation.py` (each edit must match, so a changed source
+fails loudly rather than timing the unchanged kernel):
 
 - `kernel`: as committed;
 - `no_h_loads`: the blur along H reads zeros instead of the images (its
@@ -33,8 +33,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -66,61 +64,6 @@ VARIANTS = {
 }
 
 
-def variant_sources() -> dict:
-    """{variant: (its source, extra nvcc flags)}: the committed
-    `csrc/loss.cu` with the variant's edits, each of which must match."""
-    from gsplat_tpu_torch import _kernels
-
-    src = (_kernels.CSRC / "loss.cu").read_text()
-    out = {}
-    for name, (edits, flags) in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in csrc/loss.cu")
-            text = text.replace(old, new)
-        out[name] = (text, flags)
-    return out
-
-
-def build(out_dir: Path):
-    """Every variant's library, one nvcc each, all started together."""
-    from gsplat_tpu_torch import _kernels
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, (text, flags) in variant_sources().items():
-        cu, lib = out_dir / f"loss_{name}.cu", out_dir / f"libloss_{name}.so"
-        cu.write_text(text)
-        jobs[name] = (subprocess.Popen([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, *flags, "-o",
-                                        str(lib), str(cu)], stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT), lib)
-    libs, paths = {}, {}
-    for name, (proc, lib) in jobs.items():
-        paths[name] = lib
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log.decode(errors='replace')}")
-        dll = ctypes.CDLL(str(lib))
-        for fn, argtypes in _kernels._SIGNATURES["loss"].items():
-            getattr(dll, fn).argtypes = list(argtypes)
-            getattr(dll, fn).restype = ctypes.c_int
-        libs[name] = dll
-    return libs, paths
-
-
-def local_memory(lib: Path) -> dict:
-    """{kernel function: (STACK, LOCAL) bytes} from `cuobjdump -res-usage`."""
-    from gsplat_tpu_torch import _kernels
-
-    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    return {m.group(1)[-40:]: (int(m.group(2)), int(m.group(3)))
-            for m in re.finditer(r"Function\s+(\S+?):\s+REG:\d+\s+STACK:(\d+)\s+SHARED:\d+\s+"
-                                 r"LOCAL:(\d+)", text)}
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--reps", type=int, default=50)
@@ -132,12 +75,14 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from gsplat_tpu_torch import _kernels
     from gsplat_tpu_torch.device import card_line
+    from gsplat_tpu_torch.scripts import ablation
     from gsplat_tpu_torch.train import losses
 
     if not torch.cuda.is_available():
         print("loss_ablate: no CUDA device", file=sys.stderr)
         return 2
-    libs, paths = build(_kernels.BUILD_DIR / "loss_ablate")
+    built = ablation.build("loss", VARIANTS, _kernels.BUILD_DIR / "loss_ablate")
+    libs = {name: lib for name, (lib, _) in built.items()}
     dev = torch.device("cuda")
     taps = losses._window_taps(11, 1.5)
     lam = 0.2
@@ -178,7 +123,8 @@ def main(argv=None) -> int:
         _kernels.check(lib.gs_loss_info(buf), "gs_loss_info")
         keys = ("registers", "shared_bytes_per_block", "blocks_per_sm")
         info[name] = {"loss_fwd": dict(zip(keys, buf[:3])), "loss_bwd": dict(zip(keys, buf[3:])),
-                      "stack_local_bytes": local_memory(paths[name])}
+                      "stack_local_bytes": {f[-40:]: (u["STACK"], u["LOCAL"]) for f, u in
+                                            _kernels.res_usage(built[name][1]).items()}}
     ms = {name: {"loss_fwd": [], "loss_bwd": []} for name in libs}
     for _ in range(args.rounds):
         for name, lib in libs.items():

@@ -35,7 +35,7 @@ import pytest
 import torch
 
 from gsplat_tpu_torch import _kernels
-from gsplat_tpu_torch.scripts import loss_ablate
+from gsplat_tpu_torch.scripts import ablation, loss_ablate
 from gsplat_tpu_torch.train import losses
 
 LAMBDA = 0.2
@@ -330,5 +330,5 @@ def test_each_ablation_variant_edits_the_committed_source(variant):
     each must still match `csrc/loss.cu`, and a variant with edits must
     differ from it."""
     edits, _ = loss_ablate.VARIANTS[variant]
-    text, _ = loss_ablate.variant_sources()[variant]
+    text, _ = ablation.variant_sources("loss", loss_ablate.VARIANTS)[variant]
     assert (text != (_kernels.CSRC / "loss.cu").read_text()) == bool(edits)
