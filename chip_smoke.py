@@ -11,8 +11,9 @@ JSON line per phase:
 1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
 2. the kernel build (one `nvcc` per source, all at once) and its time,
    then `sass`: each probe kernel's instruction counts from `cuobjdump
-   -sass` of the built libraries: the skeletons P1' and P2' keep their ten
-   staging stores and their barriers, and no P3'/P4' kernel spills to local
+   -sass` of the built libraries: P1' stages with bulk copies and mbarrier
+   waits and touches no local memory, P2' keeps its ten staging stores and
+   its barriers, and no P3'/P4' kernel spills to local
    memory or holds fewer float instructions in its hot loop than one
    iteration needs; that loop's counts by pipe (`probes/floors.py`: issue,
    FMA, compare and logic, MUFU, shuffle, shared-memory wavefronts);
@@ -137,10 +138,12 @@ JSON line per phase:
    max relative error below 1e-5 (and K4' without pack_bf16 must miss the
    rounded sum by more than that);
 16. the skeleton probes (`probe_skeleton`): P1' (`skel_fwd`) on the render
-   path's K2' inputs (the flagship frame) and P2' (`skel_bwd`) on the train
-   frame's K3' inputs, each bit for bit against its twin; K2', P1', K3' and
-   P2' timed in turns on those inputs, and the skeleton share of each
-   kernel's time;
+   path's K2' inputs (the flagship frame) and on edge tables, and P2'
+   (`skel_bwd`) on the train frame's K3' inputs, each bit for bit against
+   its twin; K2', P1', K2' with its pair loop compiled out, K3' and P2'
+   timed in turns on those inputs: the skeleton share of each kernel's time
+   (`skeleton_share`; P1' moves K2''s bytes through bulk copies into an
+   mbarrier ring) and K2''s own staging share (`k2_staging_share`);
 17. one densify step and one opacity reset on the trained state, then
    `resize`: that state (2,097,152 rows, 1,048,576 alive) grown to
    3,145,728 rows and shrunk to 1,310,720 by `resize_train_state`, the
@@ -3921,22 +3924,36 @@ def sass_step_kernels():
     return out
 
 
+# P1''s staging in SASS: the bulk copy (cp.async.bulk) and the mbarrier
+# waits (try_wait.parity), by whole mnemonic prefix
+SKEL_FWD_STAGING = {"bulk_copy": "UBLKCP", "mbarrier_wait": "SYNCS.PHASECHK"}
+
+
 def phase_sass():
-    """Instruction counts of the probe kernels: the skeletons keep their ten
-    staging stores (volatile, so nothing may drop them) and their barriers;
-    no P3'/P4' kernel spills, and each one's hot loop (`probes/floors.py`)
-    holds at least one iteration's float instructions; its counts by pipe
-    (`per_iteration`) give `phase_probe_ops` its floors. Then the blend
-    kernels' build facts (`sass_blend`)."""
+    """Instruction counts of the probe kernels: P1' stages with bulk copies
+    and waits on their mbarriers and touches no local memory; P2' keeps its
+    ten staging stores (volatile, so nothing may drop them) and its
+    barriers; no P3'/P4' kernel spills, and each one's hot loop
+    (`probes/floors.py`) holds at least one iteration's float instructions;
+    its counts by pipe (`per_iteration`) give `phase_probe_ops` its floors.
+    Then the blend kernels' build facts (`sass_blend`)."""
     from gsplat_tpu_torch.probes import floors
 
-    skel = sass_counts("probe_skeleton")
+    skel, skel_full = sass_counts("probe_skeleton"), sass_counts("probe_skeleton", full=True)
     out = {}
-    for name, part in (("skel_fwd", "skel_fwd_kernel"), ("skel_bwd", "skel_bwd_kernel")):
-        ops = one_function(skel, part, name)
-        check(ops.get("STS", 0) >= 10, f"{name}: {ops.get('STS', 0)} shared stores, want the ten rows")
-        check(ops.get("BAR", 0) >= 2, f"{name}: lost its barriers")
-        out[name] = {k: ops.get(k, 0) for k in ("STS", "LDS", "LDG", "STG", "BAR", "BRA")}
+    ops = one_function(skel, "skel_fwd_kernel", "skel_fwd")
+    full = one_function(skel_full, "skel_fwd_kernel", "skel_fwd")
+    staging = {what: sum(c for m, c in full.items() if m.startswith(prefix))
+               for what, prefix in SKEL_FWD_STAGING.items()}
+    check(all(staging.values()), f"skel_fwd: {staging}, want bulk copies and mbarrier waits")
+    check(not ops.get("LDL") and not ops.get("STL"), "skel_fwd: local memory")
+    out["skel_fwd"] = {**staging, **{k: ops.get(k, 0) for k in ("STS", "LDS", "LDG", "STG", "BRA")},
+                       "mnemonics": {m: c for m, c in full.items()
+                                     if m.startswith(("UBLKCP", "SYNCS"))}}
+    ops = one_function(skel, "skel_bwd_kernel", "skel_bwd")
+    check(ops.get("STS", 0) >= 10, f"skel_bwd: {ops.get('STS', 0)} shared stores, want the ten rows")
+    check(ops.get("BAR", 0) >= 2, "skel_bwd: lost its barriers")
+    out["skel_bwd"] = {k: ops.get(k, 0) for k in ("STS", "LDS", "LDG", "STG", "BAR", "BRA")}
     for name, got in floors.probe_loops(sass_text("probe_ops")).items():
         _, least, uniform = floors.SASS_PROBES[name]
         fn, loop_fp = got["function"], got["float_per_body"]
@@ -3952,14 +3969,32 @@ def phase_sass():
     return out
 
 
+def k2_skeleton_library():
+    """K2' with its pair loop compiled out (`scripts/skeleton_ablate.py`'s
+    `k2_skeleton`), built beside the committed kernels."""
+    from gsplat_tpu_torch import _kernels
+    from gsplat_tpu_torch.scripts import ablation, skeleton_ablate
+
+    libs = ablation.build("rasterize_fwd", {"k2_skeleton": (skeleton_ablate.K2_VARIANTS["k2_skeleton"], [])},
+                          _kernels.BUILD_DIR / "chip_smoke_k2_skeleton")
+    return libs["k2_skeleton"][0]
+
+
 def phase_probe_skeleton(device, render_instances, k3_args):
-    """P1' on the render frame's K2' inputs and P2' on the train frame's K3'
-    inputs, bit for bit against their twins; then K2', P1', K3' and P2' in
-    turns (full, skeleton, skeleton, full) on those inputs."""
+    """P1' on the render frame's K2' inputs and on the edge tables of
+    `scripts/skeleton_ablate.py` (K % 4 != 0, ranges off 16 bytes, longer
+    than its ring, to the table's end, a (10, K) table), P2' on the train
+    frame's K3' inputs, bit for bit against their twins; then K2', P1', K2'
+    with its pair loop compiled out, K3' and P2' in turns (each order, then
+    its reverse) on those inputs. `skeleton_share` is P1' (K2''s bytes
+    through bulk copies into an mbarrier ring) over K2', `k2_staging_share`
+    K2''s own staging (the pair loop compiled out) over K2'."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.probes import ablate as ab
+    from gsplat_tpu_torch.scripts import ablation
+    from gsplat_tpu_torch.scripts import skeleton_ablate as sa
     from gsplat_tpu_torch.synthetic import tiny_scene
 
     params, alive, camera = tiny_scene(**FULL, device=device)
@@ -3971,14 +4006,26 @@ def phase_probe_skeleton(device, render_instances, k3_args):
     fargs = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
     got, want = ab.skel_fwd(*fargs), ab.skel_fwd_torch(*fargs)
     check(bitwise_equal(got, want), "P1' on the flagship frame: not bit for bit its twin")
+    edges = []
+    for rows, k in sa.EDGE_TABLES:
+        eargs = (sa.edge_table(rows, k, device), *sa.edge_ranges(k, device))
+        equal = bitwise_equal(ab.skel_fwd(*eargs), ab.skel_fwd_torch(*eargs))
+        check(equal, f"P1' on the ({rows}, {k}) edge table: not bit for bit its twin")
+        edges.append({"rows": rows, "k": k, "bitwise_equal": equal})
     gotb, wantb = ab.skel_bwd(*k3_args), ab.skel_bwd_torch(*k3_args)
     check(bitwise_equal(gotb, wantb), "P2' on the train frame: not bit for bit its twin")
 
-    turns = {"blend_fwd": [], "skel_fwd": [], "blend_bwd": [], "skel_bwd": []}
+    k2_skel = k2_skeleton_library()
+
+    def k2_skeleton():
+        with ablation.loaded("rasterize_fwd", k2_skel):
+            return rc.blend_fwd(*fargs)
+
     calls = {"blend_fwd": lambda: rc.blend_fwd(*fargs), "skel_fwd": lambda: ab.skel_fwd(*fargs),
-             "blend_bwd": lambda: rc.blend_bwd(*k3_args), "skel_bwd": lambda: ab.skel_bwd(*k3_args)}
-    for order in (("blend_fwd", "skel_fwd", "blend_bwd", "skel_bwd"),
-                  ("skel_fwd", "blend_fwd", "skel_bwd", "blend_bwd")):
+             "k2_skeleton": k2_skeleton, "blend_bwd": lambda: rc.blend_bwd(*k3_args),
+             "skel_bwd": lambda: ab.skel_bwd(*k3_args)}
+    turns = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
         for name in order:
             turns[name].append(cuda_time(calls[name], 20))
     ms = {k: statistics.mean(v) for k, v in turns.items()}
@@ -3997,10 +4044,13 @@ def phase_probe_skeleton(device, render_instances, k3_args):
     summary = {
         "render_frame": {"instances": k, "tiles": num_tiles},
         "train_frame": {"instances": train_k, "tiles": train_tiles},
+        "skel_fwd_edge_tables": edges, "skel_fwd_info": ab.skel_fwd_info(),
         "ms_in_turns": turns, "ms": ms,
         "skeleton_share": {"k2": ms["skel_fwd"] / ms["blend_fwd"],
                            "k3": ms["skel_bwd"] / ms["blend_bwd"]},
-        "math_ms": {"k2": ms["blend_fwd"] - ms["skel_fwd"], "k3": ms["blend_bwd"] - ms["skel_bwd"]},
+        "k2_staging_share": ms["k2_skeleton"] / ms["blend_fwd"],
+        "math_ms": {"k2": ms["blend_fwd"] - ms["k2_skeleton"],
+                    "k3": ms["blend_bwd"] - ms["skel_bwd"]},
     }
     rows = {"skel_fwd": measured(ms["skel_fwd"], p1_plain, p1_bound, 0.0, 0.0, bitwise_equal=True),
             "skel_bwd": measured(ms["skel_bwd"], p2_plain, p2_bound, 0.0, 0.0, bitwise_equal=True)}

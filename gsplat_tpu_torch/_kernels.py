@@ -64,7 +64,8 @@ _SIGNATURES = {
         "gs_oit_bwd": (_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     },
     "probe_skeleton": {
-        "gs_skel_fwd": (_P, _LL, _P, _P, _I, _P, _P),
+        "gs_skel_fwd": (_P, _LL, _I, _P, _P, _I, _P, _P),
+        "gs_skel_fwd_info": (_P,),
         "gs_skel_bwd": (_P, _LL, _P, _P, _I, _P, _P, _P, _P),
     },
     # the P3' kernels take a `sink` pointer after their output: the others'

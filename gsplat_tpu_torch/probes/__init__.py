@@ -3,9 +3,10 @@
 Counterparts of the JAX package's probe scripts, each a hand-written kernel
 in `csrc/` with a plain PyTorch twin, a launch counter and a `main()`:
 
-- `ablate`: P1' and P2' (`csrc/probe_skeleton.cu`), the sorted blend's
-  forward K2' and backward K3' with the blend math dead, timed against the
-  full kernels on the same frame (`scripts/probe_ablate2.py`);
+- `ablate`: P1' and P2' (`csrc/probe_skeleton.cu`): the streaming of the
+  sorted blend's forward K2' (its bytes through bulk copies into an
+  mbarrier ring) and its backward K3' with the blend math dead, timed
+  against the full kernels on the same frame (`scripts/probe_ablate2.py`);
 - `op_rate`: P3' (`csrc/probe_ops.cu`), the per-iteration cost of the
   blend's building blocks on one SM (`scripts/probe_mm.py`);
 - `bf16_rate`: P4' (`csrc/probe_ops.cu`), the forward blend's op mix in

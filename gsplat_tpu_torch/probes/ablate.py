@@ -1,11 +1,16 @@
 """Skeleton probes P1' and P2': the sorted blend with its math dead.
 
-Counterpart of `scripts/probe_ablate2.py`. P1' `skel_fwd` is K2'
-(`blend_fwd`) and P2' `skel_bwd` is K3' (`blend_bwd`) with the pair loop
-compiled out (`csrc/probe_skeleton.cu`, replacing the Pallas
-`_skel_fwd_kernel`, :32, and `_skel_bwd_kernel`, :52): the grid, the staging
-of each tile's range and the writes are left. Timed on the frame the full
-kernels blend, each splits its kernel's time into streaming and math.
+Counterpart of `scripts/probe_ablate2.py` (`csrc/probe_skeleton.cu`,
+replacing the Pallas `_skel_fwd_kernel`, :32, and `_skel_bwd_kernel`, :52).
+P2' `skel_bwd` is K3' (`blend_bwd`) with the pair loop compiled out: the
+grid, the staging of each tile's range and the writes are left. P1'
+`skel_fwd` moves K2''s (`blend_fwd`) bytes, the ten table rows of every
+instance of every tile's range into shared memory and the tile's output
+out, as Hopper streams them best (bulk copies through a ring of mbarrier
+stages, in persistent blocks): the floor that K2''s staging can aim at.
+K2''s own staging, K2' with its pair loop compiled out, is a variant in
+`scripts/skeleton_ablate.py`. Timed on the frame the full kernels blend,
+each skeleton splits its kernel's time into streaming and math.
 
 With h_c = inst_t[0, 128 c], base = s // 128 for a tile's range [s, e), and
 acc(g) = sum_{c = base}^{g - 1} h_c * 1e-30 (float32, increasing c, each term
@@ -94,20 +99,39 @@ def skel_bwd_torch(inst_t, tile_start, tile_end, grid_x, grid_y, fwd, dout):
 
 
 def skel_fwd(inst_t, tile_start, tile_end, grid_x, grid_y):
-    """P1' on the card: same contract as `skel_fwd_torch`. CUDA tensors only."""
+    """P1' on the card: same contract as `skel_fwd_torch`. CUDA tensors
+    only; the table must start on a 16-byte boundary (its bulk copies read
+    whole 16-byte groups), as every fresh allocation does."""
     from gsplat_tpu_torch import _kernels
 
     inst_t, tile_start, tile_end = _kernel_inputs(
         "skel_fwd", inst_t, tile_start, tile_end, grid_x, grid_y)
+    if inst_t.data_ptr() % 16:
+        raise ValueError("skel_fwd: inst_t must start on a 16-byte boundary")
     num_tiles = grid_x * grid_y
     out = torch.empty((num_tiles, PPT, 8), dtype=torch.float32, device=inst_t.device)
+    if num_tiles == 0:
+        return out
     lib = _kernels.load("probe_skeleton")
-    err = lib.gs_skel_fwd(inst_t.data_ptr(), inst_t.shape[1], tile_start.data_ptr(),
-                          tile_end.data_ptr(), num_tiles, out.data_ptr(),
+    err = lib.gs_skel_fwd(inst_t.data_ptr(), inst_t.shape[1], inst_t.shape[0],
+                          tile_start.data_ptr(), tile_end.data_ptr(), num_tiles, out.data_ptr(),
                           _kernels.stream(inst_t.device))
     _kernels.check(err, "skel_fwd")
     skel_fwd.launches += 1
     return out
+
+
+def skel_fwd_info() -> dict:
+    """P1''s build and launch facts on the current card: registers a thread,
+    shared bytes a block, resident blocks an SM, the persistent grid's cap
+    (SMs x resident blocks)."""
+    import ctypes
+
+    from gsplat_tpu_torch import _kernels
+
+    buf = (ctypes.c_int * 4)()
+    _kernels.check(_kernels.load("probe_skeleton").gs_skel_fwd_info(buf), "skel_fwd_info")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm", "grid_cap"), buf))
 
 
 skel_fwd.launches = 0

@@ -1,19 +1,22 @@
-"""Time the P3'/P4' probe kernels of two trees of this repository in one
-process, in alternated pairs, so that a redesign is compared with its
-parent on one card.
+"""Time the probe kernels of two trees of this repository in one process,
+in alternated pairs, so that a redesign is compared with its parent on one
+card.
 
     python gsplat_tpu_torch/scripts/probe_ab.py --parent TREE [--change TREE] [--pairs 3]
 
 Run it as a file, not with `-m`. Each tree's `gsplat_tpu_torch` is imported
-under its own module table and builds its own `csrc/probe_ops.cu` into its
-own `_build/`; a tree's wrappers run with its table in place, so the two
-never share a module or a library. On the card only. For every kernel row
-(the twelve `op_<variant>` of `probes.op_rate` at 1000 iterations, and
-`blend_mix_<dtype>` of `probes.bf16_rate` at 256 and 512 rows, 2000
-iterations) it times parent, change, change, parent, `--pairs` times in
-all (the last an odd half when `--pairs` is odd), each a mean of `--reps`
-calls after one between CUDA events, on both trees' own inputs (the same
-seeded arrays); and whether the two trees' outputs are equal bit for bit.
+under its own module table and builds its own `csrc/probe_ops.cu` and
+`csrc/probe_skeleton.cu` into its own `_build/`; a tree's wrappers run with
+its table in place, so the two never share a module or a library. On the
+card only. For every kernel row (the twelve `op_<variant>` of
+`probes.op_rate` at 1000 iterations, `blend_mix_<dtype>` of
+`probes.bf16_rate` at 256 and 512 rows, 2000 iterations, and the skeletons
+`skel_fwd` and `skel_bwd` of `probes.ablate` on the flagship frame of
+`scripts/skeleton_ablate.py`, 1,048,576 gaussians at 1920x1080) it times
+parent, change, change, parent, `--pairs` times in all (the last an odd half when `--pairs` is
+odd), each a mean of `--reps` calls after one between CUDA events, on both
+trees' own inputs (the same seeded arrays; the skeletons the same frame);
+and whether the two trees' outputs are equal bit for bit.
 For both trees it also counts each probe kernel's hot loop by pipe, per
 warp and pass (`probe_loops` of the change's `probes/floors.py`, with its
 `SASS_PROBES` names and warp-uniform loads). Prints one
@@ -41,18 +44,21 @@ def _ours(name: str) -> bool:
 
 
 def load_tree(root: Path) -> dict:
-    """The tree's modules (`op_rate`, `bf16_rate`, `_kernels`, `probes`
-    and what they import of the package), imported from `root` and then
-    taken out of `sys.modules` again."""
+    """The tree's modules (`op_rate`, `bf16_rate`, `ablate`, `_kernels`,
+    `probes`, what the skeletons' frame is built with, and what they import
+    of the package), imported from `root` and then taken out of
+    `sys.modules` again."""
     saved = {k: v for k, v in sys.modules.items() if _ours(k)}
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, str(root))
     try:
-        for mod in ("probes.op_rate", "probes.bf16_rate", "_kernels"):
+        for mod in ("probes.op_rate", "probes.bf16_rate", "probes.ablate", "_kernels",
+                    "core.types", "ops.binning", "ops.projection", "render", "synthetic"):
             importlib.import_module(f"{PKG}.{mod}")
-        if (root / PKG / "probes" / "floors.py").exists():
-            importlib.import_module(f"{PKG}.probes.floors")
+        for mod in ("probes.floors", "scripts.skeleton_ablate"):
+            if (root / PKG / (mod.replace(".", "/") + ".py")).exists():
+                importlib.import_module(f"{PKG}.{mod}")
         mods = {k: v for k, v in sys.modules.items() if _ours(k)}
     finally:
         sys.path.remove(str(root))
@@ -78,9 +84,11 @@ def active(mods: dict):
         sys.modules.update(saved)
 
 
-def rows(mods: dict, device) -> dict:
-    """{row: (call, inputs' description)} of one tree."""
+def rows(mods: dict, device, frame) -> dict:
+    """{row: call} of one tree; `frame` is the skeletons' (inst_t,
+    tile_start, tile_end, grid_x, grid_y)."""
     op_rate, bf16_rate = mods[f"{PKG}.probes.op_rate"], mods[f"{PKG}.probes.bf16_rate"]
+    ablate = mods[f"{PKG}.probes.ablate"]
     out = {}
     for name in op_rate.VARIANTS:
         ins = op_rate.inputs(name, device)
@@ -93,6 +101,11 @@ def rows(mods: dict, device) -> dict:
             x = bf16_rate.inputs(shape, dtype, device)
             row = f"blend_mix_{key}" + ("_512" if shape[0] == 512 else "")
             out[row] = lambda x=x, dtype=dtype: bf16_rate.WRAPPERS[dtype](x)
+    import torch
+
+    per_pixel = torch.ones((frame[3] * frame[4], 256, 8), device=device)
+    out["skel_fwd"] = lambda: ablate.skel_fwd(*frame)
+    out["skel_bwd"] = lambda: ablate.skel_bwd(*frame, per_pixel, per_pixel)
     return out
 
 
@@ -134,18 +147,21 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     trees = {"parent": load_tree(Path(args.parent).resolve()),
              "change": load_tree(Path(args.change).resolve())}
-    jobs = {}
+    jobs = []
     for label, mods in trees.items():
         with active(mods):
-            jobs[label] = mods[f"{PKG}._kernels"]._start_build("probe_ops")
-    for label, job in jobs.items():
+            jobs += [(label, mods[f"{PKG}._kernels"]._start_build(source))
+                     for source in ("probe_ops", "probe_skeleton")]
+    for label, job in jobs:
         if job is not None:
             with active(trees[label]):
                 trees[label][f"{PKG}._kernels"]._finish_build(job)
+    with active(trees["change"]):
+        frame = trees["change"][f"{PKG}.scripts.skeleton_ablate"].flagship_frame(device)
     calls = {}
     for label, mods in trees.items():
         with active(mods):
-            calls[label] = rows(mods, device)
+            calls[label] = rows(mods, device, frame)
     probes = trees["change"][f"{PKG}.probes"]
     clocks_before = smi("clocks.sm,clocks.max.sm")
     out = {}
