@@ -79,9 +79,19 @@ JSON line per phase:
 10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
-   after; a per-stage breakdown; each kernel's time against its plain twin,
-   its bound and its error (the packs also `gather_ref_ms`, the card's
-   time for `packets.index_select(0, gauss_id)` alone); K2' equal to its
+   after (Bt', K1' expand and pack, K2' once per frame); a per-stage
+   breakdown (`binning_tables`: Bt' and the read of K, the frame's one host
+   sync; `k_read_to_expand_launch_ms`, the host's turnaround from that
+   read's return to the expand's launch); Bt' (`emission_tables`)
+   `torch.equal` to its twin `_emission_tables_torch` on all six outputs on
+   the frame, on the frame projected with tight_cull off and on the edge
+   rows of `synthetic.emission_edge_screen` (rect heights 0, 8 and 9, det,
+   a, c and cull_qmax at 0 or below, b = 0, centres on tile edges, NaN and
+   inf in mean2d and conic) with tight_cull on and off; each kernel's time
+   against its plain twin, its bound and its error (the packs also
+   `gather_ref_ms`, the card's time for `packets.index_select(0,
+   gauss_id)` alone; Bt' also with K read back, and torch's cumsum of the
+   tile counts alone); K2' equal to its
    twin on the whole frame (max abs err 0, n_contrib exact); K1' and K2'
    not under their bounds; the warp cull's
    check on the frame (`cull_stats_torch`: no kept pair outside its box or
@@ -100,14 +110,16 @@ JSON line per phase:
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
-   just after (the projection forward and backward, K1', K2', K3', K4',
+   just after (the projection forward and backward, Bt', K1', K2', K3', K4',
    the loss forward and backward and Adam once per step; every path below also projects once per frame, step,
-   evaluation view, viewer request and mesh rank-step), the loss falling,
+   evaluation view, viewer request and mesh rank-step, and launches Bt'
+   once for each K1' expand), the loss falling,
    no NaN; a stage split (the projection's forward and backward kernels
    apart), the busy share and kernels per step, peak memory; the
    projection kernels on the step's own inputs (2,097,152 rows, half
    dead, the offset, the blend's cotangents) against their twins and
-   autograd, and timed; K3', K4', the expand
+   autograd, and timed; K3', K4', Bt' (the train frame's screen, bit for
+   bit, and its `forward_binning_tables` stage), the expand
    (2,097,152 rows, half dead) and the hybrid pack against their twins at
    the train frame's shapes and timed there (K4' also at the live rows'
    N, and the zeroing of its accumulator alone), none under its bound;
@@ -273,7 +285,8 @@ JSON line per phase:
    time; K1' its train-frame expand and expand + pack per path; K4' its
    build facts and the subnormal outcomes; every path kernel its device
    time from its path's profile, `profiled_ms`, which no slow host
-   stretches, also not under its bound); K1' to K6' count on the render
+   stretches, also not under its bound; Bt' its train-frame time); Bt' and
+   K1' to K6' count on the render
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
@@ -358,9 +371,9 @@ def cuda_time(fn, reps):
 
 
 # the port's kernel functions on the paths, as the profiler names them
-PATH_KERNEL_FUNCS = ("expand_instances_kernel", "pack_instances_kernel", "blend_fwd_kernel",
-                     "blend_bwd_kernel", "reduce_by_gid_kernel", "oit_fwd_kernel",
-                     "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel",
+PATH_KERNEL_FUNCS = ("emission_tables_kernel", "expand_instances_kernel", "pack_instances_kernel",
+                     "blend_fwd_kernel", "blend_bwd_kernel", "reduce_by_gid_kernel",
+                     "oit_fwd_kernel", "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel",
                      "adam_rows_kernel", "loss_fwd_kernel", "loss_bwd_kernel")
 
 
@@ -411,6 +424,7 @@ def all_kernels():
 
     return {"project_fwd": pj.project_fwd, "project_bwd": pj.project_bwd,
             "adam_rows": optim.adam_rows, "loss_fwd": losses.loss_fwd, "loss_bwd": losses.loss_bwd,
+            "emission_tables": tb.emission_tables,
             "expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
             "reduce_by_gid": rd.reduce_by_gid_cuda,
@@ -452,18 +466,20 @@ def read_counts():
 
 
 # the kernels each path launches once per frame or step: every path
-# projects (the projection forward, and its backward in training); serving
+# projects (the projection forward, and its backward in training) and bins
+# (Bt' and K1''s expand, then a pack); serving
 # packs float32 packets and has no backward; training packs hybrid ones and
 # runs the loss forward and backward and Adam; the OIT paths blend with K5'
 # (and K6') in place of K2' (and K3')
 STEP_KERNELS = ("loss_fwd", "loss_bwd", "adam_rows")
-RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "blend_fwd")
-TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "blend_fwd",
+BIN_KERNELS = ("emission_tables", "expand_instances")
+RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "blend_fwd")
+TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "blend_fwd",
                  "blend_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
-OIT_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances", "oit_fwd")
-OIT_TRAIN_KERNELS = ("project_fwd", "expand_instances", "pack_instances_hybrid", "oit_fwd",
+OIT_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "oit_fwd")
+OIT_TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "oit_fwd",
                      "oit_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
-BF16_RENDER_KERNELS = ("project_fwd", "expand_instances", "pack_instances_bf16", "blend_fwd")
+BF16_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_bf16", "blend_fwd")
 
 
 def check_counts(counts, path_kernels, n, what):
@@ -541,6 +557,59 @@ def expand_errors(what, got, want, rect):
     check(bitwise_equal(got[2][live], want[2][live]), f"{what}: live packet rows not bitwise equal")
     return max_abs_diff(what, ("keys", "gid", "packets"), (got[0], got[1], got[2][live]),
                         (want[0], want[1], want[2][live]))
+
+
+# Bt''s bytes a row: rect_min 8, rect_max 8, conic 12, mean2d 8, cull_qmax
+# 4 and tiles_touched 4 in (without the tight cull rect_min, rect_max and
+# tiles_touched alone); rect 16, trimmed 1, t_lo 32, cum_run 32 and
+# cum_excl 8 out. Its float32 operations a row under the tight cull, an
+# IEEE division or square root one each: 18 for the conic and 54 for each
+# of the eight rect rows (both run ends 28, the band and its clamp 11, the
+# run's columns 10, its prefix 2, the casts 3)
+TABLE_BYTES_IN = {True: 44, False: 20}
+TABLE_BYTES_OUT = 89
+TABLE_OPS = {True: 18 + 8 * 54, False: 0}
+TABLE_FIELDS = ("rect", "cum_excl", "trimmed", "t_lo", "cum_run")
+
+
+def tables_bound(n, tight):
+    return bound(n * (TABLE_BYTES_IN[tight] + TABLE_BYTES_OUT), n * TABLE_OPS[tight])
+
+
+def tables_check(what, screen, tight):
+    """Bt' against its twin `_emission_tables_torch` on `screen`: all five
+    tables `torch.equal` (dtype and shape included) and K equal. Returns
+    the kernel's tables and the case's counts."""
+    from gsplat_tpu_torch.ops import binning as tb
+
+    got = tb.emission_tables(screen, 16, tight)
+    want = tb._emission_tables_torch(screen, 16, tight)
+    for name, a, b in zip(TABLE_FIELDS, got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+              f"Bt' {what}: {name} differs from its twin")
+    check(got[5] == want[5], f"Bt' {what}: K {got[5]}, the twin's {want[5]}")
+    live = got[0][:, 3] > 0
+    return got, {"case": what, "rows": int(got[0].shape[0]), "tight_cull": tight,
+                 "instances": got[5], "live": int(live.sum()),
+                 "trimmed_live": int((live & got[2].bool()).sum())}
+
+
+def tables_row(what, screen, tight, tables):
+    """Bt''s numbers on `screen`: `ms` over 20 back-to-back launches with K
+    left on the card (CUDA events; a slow host stretches them), beside the
+    same with K read back each time, the twin's, the bound and a yardstick
+    (`cumsum_ref_ms`: torch's cumsum of the tile counts alone)."""
+    from gsplat_tpu_torch.ops import binning as tb
+
+    n = tables[0].shape[0]
+    ms = cuda_time(lambda: tb.emission_tables(screen, 16, tight, read_total=False), 20)
+    bnd = tables_bound(n, tight)
+    check(ms >= bnd[0], f"Bt' on the {what} ran in {ms} ms, under its bound {bnd[0]}")
+    counts = tables[0][:, 3].to(torch.int64)
+    return measured(ms, cuda_time(lambda: tb._emission_tables_torch(screen, 16, tight), 3), bnd,
+                    0.0, 0.0, rows=n, tight_cull=tight, ms_with_k_read=cuda_time(
+                        lambda: tb.emission_tables(screen, 16, tight), 20),
+                    cumsum_ref_ms=cuda_time(lambda: torch.cumsum(counts, 0), 20))
 
 
 def phase_binning(device):
@@ -1465,8 +1534,12 @@ def phase_main_path(device):
     # --- per-stage breakdown of the same frame, stage by stage
     gx, gy = grid_dims(camera, 16)
     num_tiles = gx * gy
+    # (`binning_tables` is Bt' and the read of K, the frame's host sync;
+    # `K1_expand` starts with the host's turnaround from that read's return
+    # to the expand's launch, timed apart on the host clock)
     stages = ("preprocess", "binning_tables", "K1_expand", "sort", "K1_pack", "K2_blend", "composite")
     stage_ms = {s: [] for s in stages}
+    turnaround_ms = []
     for i in range(WARMUP + TIMED):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         ev[0].record()
@@ -1474,8 +1547,10 @@ def phase_main_path(device):
         ev[1].record()
         screen = screen.detach()
         tables = tb._emission_tables(screen, 16, True)
+        k_read = time.perf_counter()
         ev[2].record()
         keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
+        launched = time.perf_counter()
         ev[3].record()
         keys_sorted, perm = torch.sort(keys, stable=True)
         ev[4].record()
@@ -1491,6 +1566,7 @@ def phase_main_path(device):
         if i >= WARMUP:
             for j, s in enumerate(stages):
                 stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
+            turnaround_ms.append((launched - k_read) * 1e3)
     check(torch.equal(image, img), "stage-by-stage frame differs from render()")
     k = tables[5]
     n = params.xyz.shape[0]
@@ -1529,6 +1605,22 @@ def phase_main_path(device):
     blend_ms = cuda_time(lambda: rc.blend_fwd(*blend_args), 20)
     sort_ms = cuda_time(lambda: torch.sort(keys, stable=True), 20)
 
+    # Bt' against its twin bit for bit on the frame, on it projected without
+    # the tight cull, and on the edge rows of `emission_edge_screen` (both
+    # modes); timed on the frame
+    from gsplat_tpu_torch.synthetic import emission_edge_screen
+
+    _, bt_frame = tables_check("render frame", screen, True)
+    bt_cases = [bt_frame]
+    rect_screen, _, _ = screen_of((params, alive, camera),
+                                  make_render_settings(sh_degree=3, tight_cull=False), device)
+    bt_cases.append(tables_check("render frame, tight_cull=False", rect_screen.detach(), False)[1])
+    del rect_screen
+    edge, _ = emission_edge_screen(device=device)
+    bt_cases += [tables_check(f"edge rows, tight_cull={t}", edge, t)[1] for t in (True, False)]
+    check(bt_frame["instances"] == k, f"Bt' K {bt_frame['instances']}, the frame's {k}")
+    bt_row = tables_row("render frame", screen, True, tables)
+
     exp_bound, live, trimmed_live, run_rows = expand_bound_of(tables)
     pack_bound = pack_bound_of(k, live, num_tiles)
     check(exp_ms >= exp_bound[0] and pack_ms >= pack_bound[0],
@@ -1538,7 +1630,9 @@ def phase_main_path(device):
     check(blend_ms >= blend_bound[0], f"K2' ran in {blend_ms} ms, under its bound {blend_bound[0]}")
 
     rows = {
-        # K1' is checked bit for bit (its errors are 0, so relative ones too)
+        # Bt' and K1' are checked bit for bit (their errors are 0, so
+        # relative ones too)
+        "emission_tables": bt_row,
         "expand_instances": measured(exp_ms, exp_plain_ms, exp_bound, exp_err, exp_err),
         "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
                                    gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm, gid)),
@@ -1554,6 +1648,9 @@ def phase_main_path(device):
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "device_profile": profile,
         "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
+        "k_read_to_expand_launch_ms_median": statistics.median(turnaround_ms),
+        "k_read_to_expand_launch_ms": turnaround_ms,
+        "emission_tables_cases": bt_cases,
         "sort_ms": sort_ms, "launches": launches,
         "blend_full_frame_max_abs_err": blend_err,
         "peak_mem_gib": peak_gib,
@@ -1923,14 +2020,17 @@ def phase_train(device, blend_mode="sorted"):
                         (losses, "loss_fwd", "lf0", "lf1"), (losses, "loss_bwd", "lb0", "lb1"),
                         (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
+                        (tb, "emission_tables", "bt0", "bt1"),
                         (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
                         (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
-    # `forward` holds `forward_projection`, `loss` holds `loss_kernel` and
+    # `forward` holds `forward_projection` and `forward_binning_tables` (Bt'
+    # and the read of K), `loss` holds `loss_kernel` and
     # `loss_backward` holds `loss_backward_kernel`; what the projection
     # backward's kernel takes (`projection_backward`) is split from the
     # autograd steps before it and the statistics after it (until Adam);
     # `adam` is the Adam kernel with the freeze, `after_adam` what follows
     spans = (("forward", "fwd0", "fwd1"), ("forward_projection", "pf0", "pf1"),
+             ("forward_binning_tables", "bt0", "bt1"),
              ("loss", "fwd1", "loss1"), ("loss_kernel", "lf0", "lf1"),
              ("loss_backward", "loss1", "k3_0"), ("loss_backward_kernel", "lb0", "lb1"),
              (bwd_stage, "k3_0", "k3_1"),
@@ -1997,8 +2097,8 @@ def kernel_rows_projection_train(pf_args, pb_args):
 
 
 def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
-    """K3', K4' and the hybrid K1' pack and expand on the inputs one train
-    step gave them: time, plain twin time, error and bound."""
+    """K3', K4', Bt' and the hybrid K1' pack and expand on the inputs one
+    train step gave them: time, plain twin time, error and bound."""
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
@@ -2057,6 +2157,15 @@ def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
     k4_bound = bound(k * (40 + 4) + n * 40, 10 * k)
     check(k4_ms >= k4_bound[0], f"K4' ran in {k4_ms} ms, under its bound {k4_bound[0]}")
 
+    # Bt' on the train frame (2,097,152 rows, half of them dead): bit for
+    # bit its twin, timed
+    screen = exp_args[5]
+    bt_tables, bt_case = tables_check("train frame", screen, True)
+    check(bt_tables[5] == exp_args[6], f"Bt' K {bt_tables[5]} on the train frame, the step's "
+          f"{exp_args[6]}")
+    bt_row = {**tables_row("train frame", screen, True, bt_tables), **bt_case}
+    del bt_tables
+
     # the expand at the train frame (2,097,152 rows, half of them dead)
     # and the hybrid pack, each against its twin bit for bit
     exp_err = expand_errors("expand_instances (train frame)", tb.expand_instances(*exp_args),
@@ -2078,6 +2187,8 @@ def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
           f"pack {pack_ms} / {pack_bound[0]}")
 
     return {
+        # Bt' on the train frame (its row is the render frame's)
+        "emission_tables_train_frame": bt_row,
         "pack_instances_hybrid": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
                                           gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm,
                                                                       kgid)),
@@ -2749,10 +2860,10 @@ class Swaps:
 
 def eval_counts(iterations, renders):
     """Launches of a training run with `renders` evaluation renders: the
-    projection forward, K1' (expand, hybrid pack) and K2' per iteration and
+    projection forward, Bt', K1' (expand, hybrid pack) and K2' per iteration and
     per render, K3', K4', the projection backward, the loss forward and
     backward and Adam per iteration."""
-    return {"project_fwd": iterations + renders,
+    return {"project_fwd": iterations + renders, "emission_tables": iterations + renders,
             "expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
             "blend_fwd": iterations + renders, "blend_bwd": iterations,
             "reduce_by_gid": iterations, "project_bwd": iterations,
@@ -2949,7 +3060,7 @@ def phase_checkpoint_resume(device, root: Path):
         ev = loop.evaluate_test(st, test_cams, settings, bg, pixels)
         eval_ms.append((time.perf_counter() - t0) * 1e3)
     eval_launches = read_counts()
-    check_launches(eval_launches, {"project_fwd": 4, "expand_instances": 4,
+    check_launches(eval_launches, {"project_fwd": 4, "emission_tables": 4, "expand_instances": 4,
                                    "pack_instances_hybrid": 4, "blend_fwd": 4},
                    "evaluate_test, 2 views twice")
     l1s, psnrs = [], []
@@ -3314,7 +3425,8 @@ def phase_bench():
               f"bench {name}: rate {r['pixels_per_s']}, device {r['device_ms']} ms, host {r['ms']} ms")
     grad = 1 + bench.GRAD_ITERS + bench.PROFILED_CALLS  # calls per gradient point
     fwd = 1 + bench.RENDER_ITERS + bench.PROFILED_CALLS
-    want = {"project_fwd": 3 * grad + fwd, "expand_instances": 3 * grad + fwd,
+    want = {"project_fwd": 3 * grad + fwd, "emission_tables": 3 * grad + fwd,
+            "expand_instances": 3 * grad + fwd,
             "pack_instances": grad, "pack_instances_hybrid": 2 * grad + fwd,
             "blend_fwd": 3 * grad + fwd, "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad,
             "project_bwd": 3 * grad}
@@ -3401,6 +3513,7 @@ def phase_quality_fixture(device):
         check(rc_ == 0, f"colmap_proxy returned {rc_}: {buf.getvalue()[-1500:]}")
         renders = test_views + EVAL_TRAIN_VIEWS
         want = {"project_fwd": views + n_it + renders + test_views,
+                "emission_tables": views + n_it + renders + test_views,
                 "expand_instances": views + n_it + renders + test_views,
                 "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
                 "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
@@ -3848,13 +3961,14 @@ def one_function(table, part, what):
 
 
 def sass_k1_k4():
-    """K1' and K4' as built: registers and no local memory; K4''s global
+    """Bt', K1' and K4' as built: registers and no local memory; K4''s global
     reductions, with their whole mnemonics: three per instance (for ten
     values) in each of its two instantiations (pack_bf16 off and on), each
     a mnemonic of the vector probe kernels (v4, v2); the scalar probe's
     mnemonic is recorded beside them."""
     out = {}
-    for name, source, part in (("expand_instances", "binning", "expand_instances_kernel"),
+    for name, source, part in (("emission_tables", "binning", "emission_tables_kernel"),
+                               ("expand_instances", "binning", "expand_instances_kernel"),
                                ("pack_instances", "binning", "pack_instances_kernel"),
                                ("reduce_by_gid", "reduce", "reduce_by_gid_kernelILb0E"),
                                ("reduce_by_gid_pack_bf16", "reduce", "reduce_by_gid_kernelILb1E")):
@@ -4220,12 +4334,15 @@ def phase_probe_path():
 
 
 # the projection's kernels replace no Pallas kernel: the JAX package's
-# `preprocess` is XLA fusions
+# `preprocess` is XLA fusions; so are its binning tables
 PROJECTION_REPLACES = "gsplat_tpu/ops/projection.py:120 preprocess (XLA fusions; no Pallas kernel)"
+TABLES_REPLACES = ("gsplat_tpu/ops/binning.py:171 compute_row_runs + :673-675 cumsum "
+                   "(XLA fusions; no Pallas kernel)")
 
 KERNEL_ROWS = (
     # (row, path whose count is `launches`, source, TPU kernel)
     ("project_fwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
+    ("emission_tables", "train", "gsplat_tpu_torch/csrc/binning.cu", TABLES_REPLACES),
     ("project_bwd", "train", "gsplat_tpu_torch/csrc/projection.cu", PROJECTION_REPLACES),
     ("adam_rows", "train", "gsplat_tpu_torch/csrc/adam.cu", ADAM_REPLACES),
     ("loss_fwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
@@ -4262,6 +4379,7 @@ KERNEL_ROWS = (
 # (row, path whose profile times it, kernel function): `profiled_ms`, the
 # kernel's device time per frame or step in that path's profiled run
 PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
+                 ("emission_tables", "render", "emission_tables_kernel"),
                  ("project_bwd", "train", "project_bwd_kernel"),
                  ("expand_instances", "render", "expand_instances_kernel"),
                  ("pack_instances", "render", "pack_instances_kernel"),
@@ -4279,13 +4397,15 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
 def attach_profiled(measures, profiles):
     """Each path kernel's device time from its path's profile beside its
     timed loop (`ms`, CUDA events around back-to-back wrapper calls, which
-    a slow host can stretch); neither may be under the bound. K1''s expand
-    also gets its train-frame time and expand + pack per path."""
+    a slow host can stretch); neither may be under the bound. Bt' and K1''s
+    expand also get their train-frame time, K1' expand + pack per path."""
     for row, path, func in PROFILED_ROWS:
         ms = profiles[path][func]
         check(ms >= measures[row]["bound_ms"], f"{row}: {ms} ms in the {path} profile, under "
               f"its bound {measures[row]['bound_ms']}")
         measures[row]["profiled_ms"] = ms
+    measures["emission_tables"]["train_frame"]["profiled_ms"] = profiles["train"][
+        "emission_tables_kernel"]
     exp = measures["expand_instances"]
     exp["train_frame"]["profiled_ms"] = profiles["train"]["expand_instances_kernel"]
     exp["k1_total_profiled_ms"] = {
@@ -4389,6 +4509,8 @@ def main() -> int:
     measures["blend_bwd"]["sass"] = sass["blend_bwd"]
     # K1': the expand on the train frame too, and expand + pack per path;
     # K4': its build facts and what its reductions do with subnormals
+    measures["emission_tables"]["train_frame"] = measures.pop("emission_tables_train_frame")
+    measures["emission_tables"]["sass"] = sass["emission_tables"]
     exp_train = measures.pop("expand_instances_train_frame")
     measures["expand_instances"].update(
         train_frame=exp_train, sass=sass["expand_instances"],

@@ -1,6 +1,37 @@
-// Kernel K1': tile binning for the sorted blend, on Hopper (sm_90a).
+// Kernels Bt' and K1': tile binning for the sorted blend, on Hopper (sm_90a).
 //
-// Replaces the Pallas kernel `_expand_kernel` of gsplat_tpu/ops/binning.py
+// Bt', `gs_emission_tables`, replaces no Pallas kernel: in the JAX package
+// the tight-cull row runs (`compute_row_runs`, gsplat_tpu/ops/binning.py:171)
+// and the instance prefix sum (:673-675) are XLA fusions inside the jitted
+// frame. The port ran them as ~100 eager torch launches and a host read of
+// the total; here they are one launch. A thread takes four gaussians (a
+// block 1,024, each warp access 32 consecutive rows), reads each one's
+// screen columns once (rect_min, rect_max, conic, mean2d, cull_qmax,
+// tiles_touched: 44 bytes), runs its eight rect rows in registers in the
+// operation order of the plain twin (`_emission_tables_torch`, torch's CUDA
+// ops one by one: `torch.clamp`, `maximum` and `minimum` with their NaN
+// rules written out, `/ tile` as torch's multiply by the reciprocal, float
+// to int32 by `static_cast`), and writes rect [rmin_x, rmin_y, max(rect_w,
+// 1), tiles_post], the trimmed flag, t_lo and cum_run (8 int32 each) and
+// cum_excl, the exclusive int64 prefix sum of tiles_post (89 bytes).
+//
+// The prefix sum is a single-pass scan with decoupled look-back (Merrill
+// and Garland), a block of 1,024 rows a scan block: blocks take their place
+// in the order by an atomic ticket, each publishes its aggregate, then
+// finds its exclusive prefix by walking back over its predecessors'
+// published aggregates and inclusive prefixes, a warp 32 blocks at a time,
+// and publishes its own inclusive prefix; the last block writes the total
+// K. A block's status is a flag word, (launch number << 2) | state, beside
+// two int64 value slots, so the sums keep torch's int64 range and nothing
+// is zeroed between launches: a flag from an earlier launch reads as not
+// yet published. The look-back's chain costs time per block: on an H100
+// 80GB HBM3 (700 W) and the 1M-row flagship frame, blocks of 256 rows took
+// 0.110 ms against 0.062 without it, blocks of 1,024 0.083 against 0.072
+// (`scripts/tables_ablate.py`).
+//
+// Bound on the card: bytes (133 a row; a few hundred float operations).
+//
+// K1' replaces the Pallas kernel `_expand_kernel` of gsplat_tpu/ops/binning.py
 // (:485, launched by `_expand_instances` from `pack_bins`). On the TPU that
 // kernel run-length-decodes instance slots with a one-hot window matmul,
 // because the TPU has no cheap scatter; it emits sort keys and the ten blend
@@ -68,6 +99,251 @@ namespace {
 constexpr int RUN_HMAX = 8;
 constexpr int N_ROWS = 16;
 constexpr int EXPAND_THREADS = 256;  // gaussians per block = slots per step
+constexpr int TABLE_THREADS = 256;   // Bt': threads per block
+constexpr int TABLE_WARPS = TABLE_THREADS / 32;
+constexpr int TABLE_ROWS = 4;        // Bt': gaussians per thread
+constexpr int TABLE_TILE = TABLE_THREADS * TABLE_ROWS;  // gaussians per block = per scan block
+constexpr int TABLE_PARTS = TABLE_ROWS * TABLE_WARPS;  // (row group, warp) sums a block
+static_assert(TABLE_PARTS <= 32, "one warp scans the block's warp sums");
+// the tight cull's outward padding of the run ends (binning.py _RUN_PAD_*)
+constexpr float RUN_PAD_REL = 1.000244140625f;  // 1 + 2^-12
+constexpr float RUN_PAD_ABS = 0.00390625f;      // 2^-8 pixels
+// a scan block's state, the low two bits of its flag word
+constexpr unsigned long long SCAN_AGGREGATE = 1, SCAN_PREFIX = 2;
+
+// torch's CUDA float ops where a NaN must come out as torch's does (fmaxf
+// and fminf alone return the other operand): `torch.maximum` / `minimum`
+// give the first NaN operand; `torch.clamp` with tensor bounds the value,
+// else the lower, else the upper bound if NaN, else min(max(v, lo), hi);
+// `clamp(min=scalar)` the value if NaN
+__device__ __forceinline__ float t_maximum(float a, float b)
+{
+    return a != a ? a : b != b ? b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float t_minimum(float a, float b)
+{
+    return a != a ? a : b != b ? b : fminf(a, b);
+}
+
+__device__ __forceinline__ float t_clamp(float v, float lo, float hi)
+{
+    return v != v ? v : lo != lo ? lo : hi != hi ? hi : fminf(fmaxf(v, lo), hi);
+}
+
+__device__ __forceinline__ float t_clamp_min(float v, float lo)
+{
+    return v != v ? v : fmaxf(v, lo);
+}
+
+// one end of a rect row's run (binning.py `endpoint`): the ellipse's x at
+// the band's dy nearest the peak's, padded outward; `sign` is +1 for the
+// right end and -1 for the left, multiplied in as torch multiplies it
+__device__ __forceinline__ float run_end(float dy_pk, float dy0, float dy1, float aq2,
+                                         float det_s, float nb, float mx, float a_s, float sign)
+{
+    const float dye = t_clamp(dy_pk, dy0, dy1);
+    const float disc = aq2 - det_s * dye * dye;
+    const float root = sqrtf(t_clamp_min(disc, 0.0f)) * RUN_PAD_REL;
+    const float x = mx + (nb * dye + root * sign) / a_s;
+    return x + sign * RUN_PAD_ABS;
+}
+
+// One gaussian's tight-cull row runs (binning.py `compute_row_runs`): the
+// first tile column and the exclusive run-length prefix of each of the
+// eight rect rows (integer-valued floats cast to int32), the trimmed flag,
+// and tiles_post as the return value. Rows that are not trimmed, dead ones
+// included, get the twin's values from its substitutes a = c = det = qmax
+// = 1. `inv_tile` is 1 / tile in float32: torch divides a tensor by a
+// Python number as a multiply by its reciprocal.
+__device__ __forceinline__ int row_runs(
+    int rmin_xi, int rmin_yi, int rmax_xi, int rmax_yi, int touched, float a, float b, float c,
+    float mx, float my, float qmax, float ftile, float tile_m1, float inv_tile, bool& trim,
+    int (&t_lo)[RUN_HMAX], int (&cum_run)[RUN_HMAX])
+{
+    const int rect_h = (int)((unsigned)rmax_yi - (unsigned)rmin_yi);
+    const float det = a * c - b * b;
+    trim = touched > 0 && a > 0.0f && c > 0.0f && det > 0.0f && rect_h <= RUN_HMAX && qmax > 0.0f;
+    const float a_s = trim ? a : 1.0f, c_s = trim ? c : 1.0f;
+    const float det_s = trim ? det : 1.0f, q_s = trim ? qmax : 1.0f;
+    const float rx = sqrtf(2.0f * q_s * c_s / det_s);
+    const float bc = b / c_s;
+    const float dy_pk_hi = -bc * rx;  // dy of the ellipse's rightmost point
+    const float dy_pk_lo = bc * rx;
+    const float aq2 = 2.0f * (a_s * q_s);
+    const float nb = -b;
+    const float rmin_x = (float)rmin_xi, rmin_y = (float)rmin_yi;
+    const float rmax_x1 = (float)(int)((unsigned)rmax_xi - 1u);
+    const float h = (float)rect_h;
+    float cum_inc = 0.0f;
+#pragma unroll
+    for (int r = 0; r < RUN_HMAX; ++r) {
+        const float dy0 = (rmin_y + (float)r) * ftile - my;
+        const float dy1 = dy0 + tile_m1;
+        const float dyc = t_clamp(0.0f, dy0, dy1);
+        const float s_c = aq2 - det_s * dyc * dyc;
+        const bool row_live = s_c >= 0.0f && (float)r < h;
+        const float x_hi = run_end(dy_pk_hi, dy0, dy1, aq2, det_s, nb, mx, a_s, 1.0f);
+        const float x_lo = run_end(dy_pk_lo, dy0, dy1, aq2, det_s, nb, mx, a_s, -1.0f);
+        const float lo = t_maximum(rmin_x, ceilf((x_lo - tile_m1) * inv_tile));
+        const float hi = t_minimum(rmax_x1, floorf(x_hi * inv_tile));
+        const float run = row_live ? t_clamp_min(hi - lo + 1.0f, 0.0f) : 0.0f;
+        t_lo[r] = static_cast<int>(row_live && run > 0.0f ? lo : rmin_x);
+        // the twin's explicit column adds: the inclusive prefix, less the row
+        cum_inc = r == 0 ? run : cum_inc + run;
+        cum_run[r] = static_cast<int>(cum_inc - run);
+    }
+    return static_cast<int>(trim ? cum_inc : (float)touched);
+}
+
+// a scan block's value, then its flag: a reader that sees the flag of this
+// launch reads the value written before it (volatile: past the L1)
+__device__ __forceinline__ void publish(unsigned long long* flag, unsigned long long* value,
+                                        int blk, unsigned long long v, unsigned long long word)
+{
+    *(volatile unsigned long long*)(value + blk) = v;
+    __threadfence();
+    *(volatile unsigned long long*)(flag + blk) = word;
+}
+
+__device__ __forceinline__ unsigned long long load_volatile(const unsigned long long* p)
+{
+    return *(const volatile unsigned long long*)p;
+}
+
+__global__ void __launch_bounds__(TABLE_THREADS) emission_tables_kernel(
+    const int* __restrict__ rect_min,       // (N, 2)
+    const int* __restrict__ rect_max,       // (N, 2)
+    const float* __restrict__ conic,        // (N, 3)
+    const float* __restrict__ mean2d,       // (N, 2)
+    const float* __restrict__ cull_qmax,    // (N,)
+    const int* __restrict__ tiles_touched,  // (N,)
+    int n, int tile, int tight_cull,
+    int4* __restrict__ rect,                // (N, 4) rmin_x, rmin_y, max(rect_w, 1), tiles_post
+    unsigned char* __restrict__ trimmed,    // (N,)
+    int4* __restrict__ t_lo,                // (N, 8)
+    int4* __restrict__ cum_run,             // (N, 8)
+    long long* __restrict__ cum_excl,       // (N,)
+    long long* __restrict__ total,          // () K
+    unsigned long long* flag,               // (blocks,) (epoch << 2) | state
+    unsigned long long* agg,                // (blocks,) each block's sum of tiles_post
+    unsigned long long* incl,               // (blocks,) the sum through each block
+    unsigned int* ticket,                   // () 0 before and after a launch
+    unsigned long long epoch)               // this launch's number, > 0
+{
+    // each (row group, warp)'s sum of tiles_post, then their exclusive scan
+    __shared__ unsigned long long s_part[TABLE_PARTS];
+    __shared__ unsigned long long s_excl;  // the block's exclusive prefix
+    __shared__ int s_block;                // the block's place in the order
+
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    if (t == 0) s_block = (int)atomicAdd(ticket, 1u);
+    __syncthreads();
+    const int blk = s_block;
+    // the last ticket: every other block holds its own, the counter is free
+    if (t == 0 && blk == (int)gridDim.x - 1) *ticket = 0u;
+
+    // 1. the block's TABLE_TILE gaussians in TABLE_ROWS groups of
+    // TABLE_THREADS consecutive ones (each warp store covers 32 rows): each
+    // thread's tables in registers, out; tiles_post kept with its warp's
+    // inclusive scan (int64, wrapping as torch's cumsum does)
+    const int g0 = blk * TABLE_TILE + t;
+    unsigned long long own[TABLE_ROWS], in_warp[TABLE_ROWS];
+#pragma unroll
+    for (int k = 0; k < TABLE_ROWS; ++k) {
+        const int g = g0 + k * TABLE_THREADS;
+        int tp = 0;
+        if (g < n) {
+            const int rx0 = rect_min[2 * g], ry0 = rect_min[2 * g + 1];
+            const int rx1 = rect_max[2 * g], ry1 = rect_max[2 * g + 1];
+            const int touched = tiles_touched[g];
+            int lo[RUN_HMAX], cr[RUN_HMAX];
+            bool trim = false;
+            if (tight_cull) {
+                tp = row_runs(rx0, ry0, rx1, ry1, touched, conic[3 * g], conic[3 * g + 1],
+                              conic[3 * g + 2], mean2d[2 * g], mean2d[2 * g + 1], cull_qmax[g],
+                              (float)tile, (float)(tile - 1), 1.0f / (float)tile, trim, lo, cr);
+            } else {
+                tp = touched;
+#pragma unroll
+                for (int r = 0; r < RUN_HMAX; ++r) lo[r] = cr[r] = 0;
+            }
+            const int w = (int)((unsigned)rx1 - (unsigned)rx0);
+            rect[g] = make_int4(rx0, ry0, w > 1 ? w : 1, tp);
+            trimmed[g] = trim;
+            t_lo[2 * g] = make_int4(lo[0], lo[1], lo[2], lo[3]);
+            t_lo[2 * g + 1] = make_int4(lo[4], lo[5], lo[6], lo[7]);
+            cum_run[2 * g] = make_int4(cr[0], cr[1], cr[2], cr[3]);
+            cum_run[2 * g + 1] = make_int4(cr[4], cr[5], cr[6], cr[7]);
+        }
+        own[k] = (unsigned long long)(long long)tp;
+        unsigned long long v = own[k];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const unsigned long long u = __shfl_up_sync(0xffffffffu, v, d);
+            if (lane >= d) v += u;
+        }
+        in_warp[k] = v;
+        if (lane == 31) s_part[k * TABLE_WARPS + warp] = v;
+    }
+    __syncthreads();
+
+    // 2. warp 0: the exclusive scan of the 32 (group, warp) sums, in row
+    // order; then the block's exclusive prefix: its aggregate out, and a walk
+    // back 32 blocks at a time, summing aggregates up to the nearest block
+    // that has published its inclusive prefix (block 0's is its aggregate)
+    if (warp == 0) {
+        const unsigned long long part = lane < TABLE_PARTS ? s_part[lane] : 0ull;
+        unsigned long long v = part;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const unsigned long long u = __shfl_up_sync(0xffffffffu, v, d);
+            if (lane >= d) v += u;
+        }
+        if (lane < TABLE_PARTS) s_part[lane] = v - part;
+        const unsigned long long block_sum = __shfl_sync(0xffffffffu, v, 31);
+        const unsigned long long tag = epoch << 2;
+        unsigned long long excl = 0;
+        if (blk == 0) {
+            if (lane == 0) publish(flag, incl, 0, block_sum, tag | SCAN_PREFIX);
+        } else {
+            if (lane == 0) publish(flag, agg, blk, block_sum, tag | SCAN_AGGREGATE);
+            for (int end = blk - 1;; end -= 32) {
+                const int p = end - lane;  // lane 0 the nearest
+                unsigned long long state = SCAN_PREFIX, val = 0;
+                if (p >= 0) {
+                    unsigned long long f;
+                    while (((f = load_volatile(flag + p)) >> 2) != epoch) __nanosleep(32);
+                    __threadfence();
+                    state = f & 3ull;
+                    val = load_volatile((state == SCAN_PREFIX ? incl : agg) + p);
+                }
+                const unsigned prefix = __ballot_sync(0xffffffffu, state == SCAN_PREFIX);
+                const int stop = prefix ? __ffs(prefix) - 1 : 31;
+                unsigned long long sum = lane <= stop ? val : 0ull;
+#pragma unroll
+                for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+                excl += sum;
+                if (prefix) break;
+            }
+            if (lane == 0) publish(flag, incl, blk, excl + block_sum, tag | SCAN_PREFIX);
+        }
+        if (lane == 0) {
+            s_excl = excl;
+            if (blk == (int)gridDim.x - 1) *total = (long long)(excl + block_sum);
+        }
+    }
+    __syncthreads();
+
+    // 3. cum_excl = the block's prefix + the rows' before it in the block
+    const unsigned long long excl = s_excl;
+#pragma unroll
+    for (int k = 0; k < TABLE_ROWS; ++k) {
+        const int g = g0 + k * TABLE_THREADS;
+        if (g < n)
+            cum_excl[g] = (long long)(excl + s_part[k * TABLE_WARPS + warp] + in_warp[k] - own[k]);
+    }
+}
 
 __global__ void __launch_bounds__(EXPAND_THREADS) expand_instances_kernel(
     const int* __restrict__ rect,          // (N, 4) rmin_x, rmin_y, rect_w, tiles_post, 16-B rows
@@ -228,6 +504,29 @@ __global__ void pack_instances_kernel(
 }
 
 }  // namespace
+
+// `scan` is the device's persistent scan state, int64 words: flags,
+// aggregates and inclusive prefixes of `scan_blocks` blocks each, then the
+// ticket; zeroed once when allocated. `epoch` numbers the launch: each
+// launch on that state needs its own, in [1, 2^62).
+extern "C" int gs_emission_tables(
+    const void* rect_min, const void* rect_max, const void* conic, const void* mean2d,
+    const void* cull_qmax, const void* tiles_touched, int n, int tile, int tight_cull,
+    void* rect, void* trimmed, void* t_lo, void* cum_run, void* cum_excl, void* total,
+    void* scan, long long scan_blocks, long long epoch, void* stream)
+{
+    const long long blocks = (n + (long long)TABLE_TILE - 1) / TABLE_TILE;
+    if (n <= 0 || tile <= 0 || epoch <= 0 || epoch >= (1ll << 62) || blocks > scan_blocks)
+        return (int)cudaErrorInvalidValue;
+    unsigned long long* s = (unsigned long long*)scan;
+    emission_tables_kernel<<<(unsigned int)blocks, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int*)rect_min, (const int*)rect_max, (const float*)conic, (const float*)mean2d,
+        (const float*)cull_qmax, (const int*)tiles_touched, n, tile, tight_cull, (int4*)rect,
+        (unsigned char*)trimmed, (int4*)t_lo, (int4*)cum_run, (long long*)cum_excl,
+        (long long*)total, s, s + scan_blocks, s + 2 * scan_blocks,
+        (unsigned int*)(s + 3 * scan_blocks), (unsigned long long)epoch);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int gs_expand_instances(
     const void* rect, const void* cum_excl, const void* trimmed, const void* t_lo,

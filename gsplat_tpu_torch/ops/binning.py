@@ -5,8 +5,16 @@ kernel's input, the `PackedBins` of the JAX package (`binning.py:801-809`):
 instances in (tile, depth bits, gaussian id) order, per-tile [start, end)
 ranges and the (16, K) float32 instance table.
 
-On a CUDA tensor it runs kernel K1' (`csrc/binning.cu`, replacing the Pallas
-`_expand_kernel`, `gsplat_tpu/ops/binning.py:485`), in two launches:
+On a CUDA tensor it runs three launches of `csrc/binning.cu`: kernel Bt'
+(`emission_tables`) for the emission tables, then kernel K1' (replacing
+the Pallas `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two:
+
+- `emission_tables`: per gaussian, the tight-cull row runs of
+  `compute_row_runs` (`t_lo`, `cum_run`, the trimmed flag, `tiles_post`),
+  its rect row and the exclusive int64 prefix sum of `tiles_post`
+  (`cum_excl`) with the total K, in one launch, bit for bit the plain twin
+  `_emission_tables_torch`; the wrapper reads K, the frame's one host
+  sync (the instance buffer is sized from it).
 
 - `expand_instances`: each gaussian's `tiles_post` instance slots start at
   offset `cum_excl` (the reference's `duplicateWithKeys`); a block of 256
@@ -35,10 +43,11 @@ so the blends compute exactly what the JAX kernels compute after
 `blk.astype(float32)`; a table stored in bf16 (half the bytes) is later
 performance work.
 
-`compute_row_runs`, the prefix sum and the sort stay in plain PyTorch, as
-the JAX package leaves them to XLA (`torch.sort(stable=True)` stands in for
-`lax.sort`). On a CPU tensor, `pack_bins` runs the plain twin
-`pack_bins_torch`, which computes the same function with tensor ops.
+The sort stays in PyTorch, as the JAX package leaves it to XLA
+(`torch.sort(stable=True)` stands in for `lax.sort`). On a CPU tensor,
+`pack_bins` runs the plain twin `pack_bins_torch`, which computes the same
+function with tensor ops (`compute_row_runs` and `torch.cumsum` for the
+tables).
 
 Deliberate difference: the instance buffer is sized for each frame from the
 prefix sum, as the CUDA reference does (`rasterize_points.cu:27-33`). So
@@ -50,6 +59,7 @@ prefix sum, as the CUDA reference does (`rasterize_points.cu:27-33`). So
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -285,10 +295,11 @@ def bin_gaussians(
 # -----------------------------------------------------------------------------
 
 
-def _emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool):
-    """Per-gaussian emission inputs shared by the kernel and its twin:
-    rect (N, 4) int32 [rmin_x, rmin_y, rect_w, tiles_post], cum_excl (N,)
-    int64, trimmed (N,) uint8, t_lo and cum_run (N, 8) int32, total K."""
+def _emission_tables_torch(screen: ScreenGaussians, tile: int, tight_cull: bool):
+    """Plain twin of `emission_tables`: the per-gaussian emission inputs of
+    the expand, rect (N, 4) int32 [rmin_x, rmin_y, rect_w, tiles_post],
+    cum_excl (N,) int64, trimmed (N,) uint8, t_lo and cum_run (N, 8) int32,
+    total K."""
     t_lo8, cum_run8, trimmed, tiles_post = compute_row_runs(screen, tile, tight_cull)
     rect_w = torch.clamp(screen.rect_max[:, 0] - screen.rect_min[:, 0], min=1)
     rect = torch.stack(
@@ -305,6 +316,81 @@ def _emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool):
         cum_run8.to(torch.int32).contiguous(),
         total,
     )
+
+
+TABLE_TILE = 1024  # Bt''s gaussians per block, one scan block each (`csrc/binning.cu`)
+_SCAN_WORDS = 3  # int64 words of scan state a block: flag, aggregate, inclusive prefix
+_table_scans: dict = {}  # device -> Bt''s persistent scan state
+_table_epoch = itertools.count(1)  # launch numbers: no two launches share one
+
+
+def _table_scan(device, blocks):
+    """Bt''s scan state on `device` for at least `blocks` blocks: a flag,
+    an aggregate and an inclusive prefix a block, then the ticket, zeroed
+    once when allocated (grown by doubling). A flag holds its launch's
+    number, so a later launch reads an earlier one's as unpublished and
+    nothing is zeroed between launches. Launches on one stream share it,
+    not launches on two streams at once."""
+    scan = _table_scans.get(device)
+    cap = 0 if scan is None else (scan.numel() - 1) // _SCAN_WORDS
+    if cap < blocks:
+        cap = max(blocks, 2 * cap)
+        scan = torch.zeros((_SCAN_WORDS * cap + 1,), dtype=torch.int64, device=device)
+        _table_scans[device] = scan
+    return scan, cap
+
+
+def emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool, read_total=True):
+    """Kernel Bt': the emission tables in one launch on the card.
+
+    Same contract as `_emission_tables_torch`, bit for bit. The total K is
+    read back with one `.item()` (the frame's host sync); with
+    `read_total=False` it stays on the card as a () int64 tensor. CUDA
+    tensors only.
+    """
+    from gsplat_tpu_torch import _kernels
+
+    if not screen.rect_min.is_cuda:
+        raise ValueError("emission_tables launches a CUDA kernel: tensors must be on a CUDA device")
+    n, dev = screen.rect_min.shape[0], screen.rect_min.device
+    _check_inputs("emission_tables", dev, (screen.rect_min, torch.int32, (n, 2)),
+                  (screen.rect_max, torch.int32, (n, 2)), (screen.conic, torch.float32, (n, 3)),
+                  (screen.mean2d, torch.float32, (n, 2)), (screen.cull_qmax, torch.float32, (n,)),
+                  (screen.tiles_touched, torch.int32, (n,)))
+    i32, i64 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.int64, device=dev)
+    rect = torch.empty((n, 4), **i32)
+    cum_excl = torch.empty((n,), **i64)
+    trimmed = torch.empty((n,), dtype=torch.uint8, device=dev)
+    t_lo = torch.empty((n, RUN_HMAX), **i32)
+    cum_run = torch.empty((n, RUN_HMAX), **i32)
+    tables = (rect, cum_excl, trimmed, t_lo, cum_run)
+    if n == 0:
+        return *tables, 0 if read_total else torch.zeros((), **i64)
+    total = torch.empty((), **i64)
+    args = [c.contiguous() for c in (screen.rect_min, screen.rect_max, screen.conic,
+                                     screen.mean2d, screen.cull_qmax, screen.tiles_touched)]
+    scan, cap = _table_scan(dev, -(-n // TABLE_TILE))
+    lib = _kernels.load("binning")
+    err = lib.gs_emission_tables(
+        *(t.data_ptr() for t in args), n, tile, int(tight_cull),
+        rect.data_ptr(), trimmed.data_ptr(), t_lo.data_ptr(), cum_run.data_ptr(),
+        cum_excl.data_ptr(), total.data_ptr(), scan.data_ptr(), cap, next(_table_epoch),
+        _kernels.stream(dev),
+    )
+    _kernels.check(err, "emission_tables")
+    emission_tables.launches += 1
+    return *tables, int(total.item()) if read_total else total
+
+
+emission_tables.launches = 0
+
+
+def _emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool):
+    """The emission tables: kernel Bt' on a CUDA tensor, its twin
+    `_emission_tables_torch` on a CPU one."""
+    if screen.rect_min.is_cuda:
+        return emission_tables(screen, tile, tight_cull)
+    return _emission_tables_torch(screen, tile, tight_cull)
 
 
 def _depth_bits(depth):
@@ -497,12 +583,11 @@ pack_instances.launches_hybrid = 0
 pack_instances.launches_bf16 = 0
 
 
-def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, expand, pack) -> PackedBins:
+def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, tables, expand,
+          pack) -> PackedBins:
     num_tiles = grid_x * grid_y
     screen = screen.detach()
-    rect, cum_excl, trimmed, t_lo, cum_run, total = _emission_tables(
-        screen, tile, tight_cull
-    )
+    rect, cum_excl, trimmed, t_lo, cum_run, total = tables(screen, tile, tight_cull)
     keys, gid, packets = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen,
                                 total, grid_x, tight_cull)
     keys_sorted, perm = torch.sort(keys, stable=True)
@@ -528,7 +613,7 @@ def pack_bins_torch(
 ) -> PackedBins:
     """Plain PyTorch twin of `pack_bins`, on any device."""
     return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
-                 _expand_instances_torch, _pack_instances_torch)
+                 _emission_tables_torch, _expand_instances_torch, _pack_instances_torch)
 
 
 def pack_bins(
@@ -542,12 +627,13 @@ def pack_bins(
     """Fused binning + instance packing (`gsplat_tpu/ops/binning.py:620`).
 
     Same instance order as `bin_gaussians`: (tile, depth bits, gaussian id).
-    On a CUDA tensor through kernel K1' (`expand_instances`,
-    `pack_instances`); on a CPU tensor through `pack_bins_torch`.
+    On a CUDA tensor through kernels Bt' (`emission_tables`) and K1'
+    (`expand_instances`, `pack_instances`); on a CPU tensor through
+    `pack_bins_torch`.
     Non-differentiable structure: the screen quantities are detached, as
     `binning.py:657` stops their gradients.
     """
     if screen.depth.is_cuda:
         return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
-                     expand_instances, pack_instances)
+                     emission_tables, expand_instances, pack_instances)
     return pack_bins_torch(screen, grid_x, grid_y, tile, tight_cull, packet_dtype)

@@ -4,7 +4,8 @@ Same numpy seed and draws, so the same (n, capacity, sh_degree) gives the
 same arrays as the JAX package's generator. At n = 1,048,576, SH degree 3
 and 1920x1080 it is the repo's flagship garden-class scene. Also a table
 of parameter rows that sit on the projection's edges
-(`projection_edge_table`).
+(`projection_edge_table`), and one of screen rows on the emission tables'
+edges (`emission_edge_screen`).
 """
 
 from __future__ import annotations
@@ -126,3 +127,78 @@ def projection_edge_table(camera, device, each=256, dead_every=7, seed=11):
     alive[::dead_every] = False
     kind = np.repeat(np.arange(nk), m)
     return params, alive, kind
+
+
+EMISSION_EDGE_KINDS = ("plain", "rect_h_0_8_9", "det_le_0", "a_le_0", "c_le_0", "qmax_le_0",
+                       "b_0", "tile_edge_centre", "dead", "whole_grid", "rect_w_0",
+                       "nan_mean2d", "inf_mean2d", "nan_conic", "inf_conic")
+
+
+def emission_edge_screen(n=3000, device="cuda", finite=False, seed=5):
+    """Screen rows (`ScreenGaussians`) built to sit on the edges of the
+    emission tables (`ops/binning.py:compute_row_runs` and its kernel Bt')
+    on a 1920x1080 tile grid (120 x 68): each row draws a kind of
+    `EMISSION_EDGE_KINDS` over a plain row (a rect of up to 12 x 10 tiles,
+    its centre within half a tile of it, a positive-definite conic,
+    cull_qmax in (0.1, 12)): rect heights of 0, 8 and 9 tiles; det exactly
+    0 or just below; a and c at 0 or below; cull_qmax at 0 or below; b =
+    +-0; centres on tile edges (16k, 16k + 15, 16k + 16 - 2^-8); dead rows
+    (no tile); the whole grid (four rows); rect width 0 (a tile count of its height);
+    NaN and +-inf in mean2d and in a conic entry (left out with `finite`).
+    Returns (screen, kind of each row)."""
+    from gsplat_tpu_torch.ops.projection import ScreenGaussians
+
+    rng = np.random.default_rng(seed)
+    gx, gy = 120, 68
+    kinds = EMISSION_EDGE_KINDS[:11] if finite else EMISSION_EDGE_KINDS
+    kind = rng.integers(0, len(kinds), n)
+    whole_grid = kinds.index("whole_grid")  # 8,160 instances a row: four rows
+    kind[kind == whole_grid] = 0
+    kind[rng.choice(n, min(n, 4), replace=False)] = whole_grid
+    is_ = {k: kind == i for i, k in enumerate(kinds)}
+    rw = rng.integers(1, 13, n)
+    rh = np.where(is_["rect_h_0_8_9"], rng.choice([0, 8, 9], n), rng.integers(1, 11, n))
+    rw[is_["rect_w_0"]] = 0
+    x0, y0 = rng.integers(0, gx - 12, n), rng.integers(0, gy - 10, n)
+    whole = is_["whole_grid"]
+    x0[whole], y0[whole], rw[whole], rh[whole] = 0, 0, gx, gy
+    mx = 16.0 * (x0 + rng.uniform(-0.5, rw + 0.5))
+    my = 16.0 * (y0 + rng.uniform(-0.5, rh + 0.5))
+    edge = is_["tile_edge_centre"]
+    off = rng.choice([0.0, 15.0, 16.0 - 2.0**-8], (2, n))
+    mx[edge] = 16.0 * (x0 + rng.integers(0, np.maximum(rw, 1)))[edge] + off[0, edge]
+    my[edge] = 16.0 * (y0 + rng.integers(0, np.maximum(rh, 1)))[edge] + off[1, edge]
+    a, c = np.exp(rng.uniform(-7.0, 0.5, (2, n)))
+    b = rng.uniform(-0.995, 0.995, n) * np.sqrt(a * c)
+    qmax = rng.uniform(0.1, 12.0, n)
+    sel = is_["det_le_0"]  # b = a = c (det exactly 0) or b just past sqrt(ac)
+    zero_det = sel & (rng.random(n) < 0.5)
+    a[zero_det] = c[zero_det] = b[zero_det] = a[zero_det]
+    b[sel & ~zero_det] = np.sqrt(a * c)[sel & ~zero_det] * rng.choice([-1.0, 1.0]) * 1.001
+    a[is_["a_le_0"]] = rng.choice([0.0, -0.0, -1e-3], is_["a_le_0"].sum())
+    c[is_["c_le_0"]] = rng.choice([0.0, -1e-3], is_["c_le_0"].sum())
+    qmax[is_["qmax_le_0"]] = rng.choice([0.0, -1.0], is_["qmax_le_0"].sum())
+    b[is_["b_0"]] = rng.choice([0.0, -0.0], is_["b_0"].sum())
+    conic = np.stack([a, b, c], 1).astype(np.float32)
+    mean2d = np.stack([mx, my], 1).astype(np.float32)
+    if not finite:  # one entry of the row's mean2d or conic
+        for name, arr, values in (("nan_mean2d", mean2d, (np.nan,)),
+                                  ("inf_mean2d", mean2d, (np.inf, -np.inf)),
+                                  ("nan_conic", conic, (np.nan,)),
+                                  ("inf_conic", conic, (np.inf, -np.inf))):
+            sel = is_[name]
+            col = rng.integers(0, arr.shape[1], n)
+            arr[sel, col[sel]] = rng.choice(values, sel.sum())
+    touched = rw * rh
+    touched[is_["rect_w_0"]] = rh[is_["rect_w_0"]]  # the expand's width clamps to 1
+    touched[is_["dead"]] = 0
+    rect_min = np.stack([x0, y0], 1)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    screen = ScreenGaussians(
+        mean2d=f32(mean2d), conic=f32(conic), opacity=f32(rng.uniform(0.01, 1.0, n)),
+        rgb=f32(rng.uniform(0.0, 1.0, (n, 3))), depth=f32(rng.uniform(0.3, 50.0, n)),
+        radius=i32(np.zeros(n)), cull_qmax=f32(qmax), rect_min=i32(rect_min),
+        rect_max=i32(rect_min + np.stack([rw, rh], 1)), tiles_touched=i32(touched),
+        mask=torch.as_tensor(touched > 0, device=device))
+    return screen, np.asarray(kinds)[kind]
