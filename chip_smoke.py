@@ -46,7 +46,7 @@ JSON line per phase:
    counted and required), and on the flagship render frame, timed there
    beside the twins and the byte bound (the train frame is checked and
    timed on the train step's own inputs in 14);
-3. K1' (binning: `expand_instances` + `pack_instances`) against its plain
+3. K1' (binning: `expand_instances` + `pack_instances`, St' between) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
    tight_cull on and off, on an empty scene, and with hybrid packets (rows
@@ -55,7 +55,8 @@ JSON line per phase:
    tables on a 1080p tile grid (one gaussian on all 8,160 tiles, runs
    straddling the expand's 256-slot steps, whole blocks of dead rows, N =
    256 m +- 1, trimmed gaussians with empty rows), expand keys, gids and
-   live packet rows, then the pack in all three packet modes;
+   live packet rows, St' on its keys, then the pack in all three packet
+   modes;
 5. `subnormals`: what the scalar `atomicAdd`, the v4 and v2 `red` forms,
    K4' and its twin do with a subnormal addend, a subnormal sum of normal
    addends and a subnormal addend onto a subnormal sum (kept or flushed);
@@ -79,10 +80,19 @@ JSON line per phase:
 10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
-   after (Bt', K1' expand and pack, K2' once per frame); a per-stage
-   breakdown (`binning_tables`: Bt' and the read of K, the frame's one host
-   sync; `k_read_to_expand_launch_ms`, the host's turnaround from that
-   read's return to the expand's launch); Bt' (`emission_tables`)
+   after (Bt', K1' expand, St', K1' pack, K2' once per frame) and the
+   kernels a frame launches (`kernels_per_frame`, the profile's); a
+   per-stage breakdown, each stage's device ms (CUDA events) beside its host
+   ms (the host clock from its first launch call to its last call's return)
+   (`binning_tables`: Bt' and the read of K, the frame's one host sync;
+   `sort`: St'; `k_read_to_expand_launch_ms`, the host's turnaround from
+   that read's return to the expand's launch); St' (`sort_instances`)
+   `torch.equal` to its twin `sort_instances_torch` on the frame's keys
+   (their largest live key under 2^key_bits and bit 31 clear, checked
+   outside the timed window) and on adversarial keys (all equal, one tile,
+   46-bit keys on 3840x2160's 32,400 tiles, K = 1, 2^22 + 7 random keys),
+   timed beside its bound, its twin, `torch.sort` with the gather
+   (`library_ms`, also `sort_ms`) and `torch.sort` alone; Bt' (`emission_tables`)
    `torch.equal` to its twin `_emission_tables_torch` on all six outputs on
    the frame, on the frame projected with tight_cull off and on the edge
    rows of `synthetic.emission_edge_screen` (rect heights 0, 8 and 9, det,
@@ -92,8 +102,8 @@ JSON line per phase:
    `gather_ref_ms`, the card's time for `packets.index_select(0,
    gauss_id)` alone; Bt' also with K read back, and torch's cumsum of the
    tile counts alone); K2' equal to its
-   twin on the whole frame (max abs err 0, n_contrib exact); K1' and K2'
-   not under their bounds; the warp cull's
+   twin on the whole frame (max abs err 0, n_contrib exact); K1', St' and
+   K2' not under their bounds; the warp cull's
    check on the frame (`cull_stats_torch`: no kept pair outside its box or
    in a skipped warp) and its share of skipped (warp, instance) pairs;
 11. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
@@ -105,21 +115,23 @@ JSON line per phase:
    walked pairs and culled share);
 13. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
    at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
-   packets (counts read around them) and the bf16 pack's row;
+   packets (counts read around them), St' bit for bit its twin on that
+   frame's keys and the bf16 pack's row;
 14. the train path at full width: the same scene (noise on features_dc and
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
-   just after (the projection forward and backward, Bt', K1', K2', K3', K4',
+   just after (the projection forward and backward, Bt', K1', St', K2', K3', K4',
    the loss forward and backward and Adam once per step; every path below also projects once per frame, step,
    evaluation view, viewer request and mesh rank-step, and launches Bt'
-   once for each K1' expand), the loss falling,
+   and St' once for each K1' expand), the loss falling,
    no NaN; a stage split (the projection's forward and backward kernels
    apart), the busy share and kernels per step, peak memory; the
    projection kernels on the step's own inputs (2,097,152 rows, half
    dead, the offset, the blend's cotangents) against their twins and
    autograd, and timed; K3', K4', Bt' (the train frame's screen, bit for
-   bit, and its `forward_binning_tables` stage), the expand
+   bit, and its `forward_binning_tables` stage), St' (the step's keys, bit
+   for bit its twin and the pack's input, and its `forward_sort` stage), the expand
    (2,097,152 rows, half dead) and the hybrid pack against their twins at
    the train frame's shapes and timed there (K4' also at the live rows'
    N, and the zeroing of its accumulator alone), none under its bound;
@@ -285,8 +297,8 @@ JSON line per phase:
    time; K1' its train-frame expand and expand + pack per path; K4' its
    build facts and the subnormal outcomes; every path kernel its device
    time from its path's profile, `profiled_ms`, which no slow host
-   stretches, also not under its bound; Bt' its train-frame time); Bt' and
-   K1' to K6' count on the render
+   stretches, also not under its bound; Bt' and St' their train-frame
+   time); Bt', St' and K1' to K6' count on the render
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
@@ -371,7 +383,10 @@ def cuda_time(fn, reps):
 
 
 # the port's kernel functions on the paths, as the profiler names them
-PATH_KERNEL_FUNCS = ("emission_tables_kernel", "expand_instances_kernel", "pack_instances_kernel",
+# (St''s two kernels, `sort_instances_hist` and `sort_instances_pass`, share
+# the name `sort_instances_`, which sums them)
+PATH_KERNEL_FUNCS = ("emission_tables_kernel", "expand_instances_kernel", "sort_instances_",
+                     "pack_instances_kernel",
                      "blend_fwd_kernel", "blend_bwd_kernel", "reduce_by_gid_kernel",
                      "oit_fwd_kernel", "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel",
                      "adam_rows_kernel", "loss_fwd_kernel", "loss_bwd_kernel")
@@ -419,13 +434,15 @@ def all_kernels():
     from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
+    from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.probes import ablate, bf16_rate, op_rate
     from gsplat_tpu_torch.train import losses, optim
 
     return {"project_fwd": pj.project_fwd, "project_bwd": pj.project_bwd,
             "adam_rows": optim.adam_rows, "loss_fwd": losses.loss_fwd, "loss_bwd": losses.loss_bwd,
             "emission_tables": tb.emission_tables,
-            "expand_instances": tb.expand_instances, "pack_instances": tb.pack_instances,
+            "expand_instances": tb.expand_instances, "sort_instances": so.sort_instances,
+            "pack_instances": tb.pack_instances,
             "blend_fwd": rc.blend_fwd, "blend_bwd": rc.blend_bwd,
             "reduce_by_gid": rd.reduce_by_gid_cuda,
             "oit_fwd": rc.blend_oit_fwd, "oit_bwd": rc.blend_oit_bwd,
@@ -467,12 +484,12 @@ def read_counts():
 
 # the kernels each path launches once per frame or step: every path
 # projects (the projection forward, and its backward in training) and bins
-# (Bt' and K1''s expand, then a pack); serving
+# (Bt', K1''s expand and St', then a pack); serving
 # packs float32 packets and has no backward; training packs hybrid ones and
 # runs the loss forward and backward and Adam; the OIT paths blend with K5'
 # (and K6') in place of K2' (and K3')
 STEP_KERNELS = ("loss_fwd", "loss_bwd", "adam_rows")
-BIN_KERNELS = ("emission_tables", "expand_instances")
+BIN_KERNELS = ("emission_tables", "expand_instances", "sort_instances")
 RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "blend_fwd")
 TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "blend_fwd",
                  "blend_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
@@ -498,10 +515,10 @@ def bound(nbytes, ops=0):
 
 
 def pack_bound_of(k, live, num_tiles):
-    # pack: key 8 + perm 8 + gid 4 per instance and 40 B of columns per live
+    # pack: key 8 + sorted gid 4 per instance and 40 B of columns per live
     # gaussian (the only ones an instance points at) in; 16 table rows +
-    # gauss_id + tile_id per instance and the T+1 bounds out
-    return bound(k * 20 + live * 40 + k * (64 + 8) + (num_tiles + 1) * 4)
+    # tile_id per instance and the T+1 bounds out
+    return bound(k * 12 + live * 40 + k * (64 + 4) + (num_tiles + 1) * 4)
 
 
 def expand_bound_of(tables):
@@ -522,12 +539,109 @@ def expand_bound_of(tables):
     return bnd, live, trimmed_live, run_rows
 
 
-def gather_ref_ms(packets, keys_sorted, perm, gid):
+def gather_ref_ms(packets, gauss_sorted):
     """A yardstick beside the pack's row, not a library time: the card's
     time for `packets.index_select(0, gauss_id)` alone, the gather of one
     packet row per sorted instance that the pack also makes."""
-    gauss_id = gid[perm].long()
+    gauss_id = gauss_sorted.long()
     return cuda_time(lambda: packets.index_select(0, gauss_id), 20)
+
+
+# St''s work a key: the key (8 B) and its gid (4 B) read once and written once
+SORT_BYTES = 24
+SORT_REPLACES = "gsplat_tpu/ops/binning.py:758 lax.sort (XLA; no Pallas kernel)"
+
+
+def sort_check(what, keys, gid, key_bits):
+    """St' (`sort_instances`) against its twin `sort_instances_torch` on
+    the same keys: both outputs `torch.equal` (dtype and shape included).
+    Returns St''s outputs and the case's counts."""
+    from gsplat_tpu_torch.ops import sort as so
+
+    got = so.sort_instances(keys, gid, key_bits)
+    want = so.sort_instances_torch(keys, gid, key_bits)
+    for name, a, b in zip(("keys_sorted", "gid_sorted"), got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+              f"St' {what}: {name} differs from its twin")
+    return got, {"case": what, "instances": int(keys.shape[0]), "key_bits": key_bits,
+                 "passes": so.sort_layout(max(1, keys.shape[0]), key_bits)[1]}
+
+
+def sort_precondition(what, keys, key_bits):
+    """St''s precondition on K1''s keys, a max over them outside any timed
+    window: bit 31 clear and the live bits under 2^key_bits. Returns the
+    largest live key."""
+    from gsplat_tpu_torch.ops import sort as so
+
+    if keys.numel() == 0:
+        return 0
+    top = int(so.live_bits(keys).max())
+    check(not bool((keys & (1 << 31)).any()) and top < 2**key_bits,
+          f"St' {what}: keys outside 2^{key_bits} (largest live key {top}) or bit 31 set")
+    return top
+
+
+def sort_row(keys, gid, key_bits):
+    """St''s numbers on a frame's keys: `ms` over 20 back-to-back calls
+    (CUDA events), its twin's, the library route it replaced
+    (`torch.sort(keys, stable=True)` and the gather of the gids, the same
+    function) and `torch.sort` alone, beside the bound (24 B a key)."""
+    from gsplat_tpu_torch.ops import sort as so
+
+    def library():
+        keys_sorted, perm = torch.sort(keys, stable=True)
+        return keys_sorted, gid[perm]
+
+    k = int(keys.shape[0])
+    ms = cuda_time(lambda: so.sort_instances(keys, gid, key_bits), 20)
+    bnd = bound(SORT_BYTES * k)
+    check(ms >= bnd[0], f"St' ran in {ms} ms, under its bound {bnd[0]}")
+    _, passes, digit_bits, tile = so.sort_layout(k, key_bits)
+    return measured(ms, cuda_time(lambda: so.sort_instances_torch(keys, gid, key_bits), 20), bnd,
+                    0.0, 0.0, library_ms=cuda_time(library, 20),
+                    torch_sort_alone_ms=cuda_time(lambda: torch.sort(keys, stable=True), 20),
+                    instances=k, key_bits=key_bits, passes=passes, digit_bits=digit_bits,
+                    tile=tile)
+
+
+def sort_edges(device):
+    """St' bit for bit its twin on adversarial keys (K1''s layout, depths
+    above 0.2 with ties and +inf): all keys equal, one tile, 46-bit keys on
+    3840x2160's 32,400 tiles, K = 1, and K = 2^22 + 7 random keys on
+    1080p's 8,160 tiles."""
+    from gsplat_tpu_torch.ops import sort as so
+
+    rng = np.random.default_rng(19)
+
+    def keys_of(tiles, depth):
+        bits = depth.astype(np.float32).view(np.int32).astype(np.int64)
+        return torch.as_tensor((tiles.astype(np.int64) << 32) | bits, device=device)
+
+    def depths(n):
+        d = rng.uniform(0.21, 1e4, n)
+        d[rng.random(n) < 0.05] = 7.0
+        d[rng.random(n) < 0.01] = np.inf
+        return d
+
+    n, big = 1 << 20, (1 << 22) + 7
+    cases = (("all_equal", keys_of(np.full(n, 4000), np.full(n, 3.5)), 44),
+             ("one_tile", keys_of(np.full(n, 4321), depths(n)), 44),
+             ("46_bit_3840x2160", keys_of(rng.integers(0, 32_400, 3 * n), depths(3 * n)),
+              so.sort_key_bits(32_400)),
+             ("k_1", keys_of(np.array([8159]), np.array([0.3])), 44),
+             ("random_2^22+7", keys_of(rng.integers(0, 8160, big), depths(big)),
+              so.sort_key_bits(8160)))
+    out = []
+    for name, keys, bits in cases:
+        gid = torch.as_tensor(rng.permutation(keys.shape[0]).astype(np.int32), device=device)
+        top = sort_precondition(name, keys, bits)
+        (_, gid_sorted), case = sort_check(name, keys, gid, bits)
+        if name == "all_equal":
+            check(torch.equal(gid_sorted, gid), "St' all_equal: slot order not kept")
+        out.append({**case, "largest_live_key": top})
+    check(out[2]["key_bits"] == 46 and out[2]["largest_live_key"] >= 2**45,
+          "St' 46-bit case holds no 46-bit key")
+    return out
 
 
 def measured(ms, plain_ms, bnd, err, rel_err, library_ms=None, **extra):
@@ -710,12 +824,13 @@ def straddled_steps(cum_excl, count, gid):
 
 def phase_k1_edges(device):
     """K1' on adversarial emission tables, bit for bit against its twins:
-    expand (keys, gids, live packet rows), then the pack in all three
-    packet modes, on a 1080p tile grid. Cases: one gaussian on all 8,160
+    expand (keys, gids, live packet rows), St' on its keys, then the pack
+    in all three packet modes, on a 1080p tile grid. Cases: one gaussian on all 8,160
     tiles; runs that straddle the 256-slot steps of the expand's walk
     (rects up to 40 x 20); whole blocks of dead rows and a last block of one
     row; N = 256 m +- 1; trimmed gaussians with empty rows (tight_cull)."""
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import sort as so
 
     rng = np.random.default_rng(11)
     cases = (("full_grid", 257, True, dict(full_at=(100,))),
@@ -734,14 +849,15 @@ def phase_k1_edges(device):
         want = tb._expand_instances_torch(*args)
         expand_errors(f"k1_edges {name}", got, want, tables[0])
         keys, gid, packets = got
-        keys_sorted, perm = torch.sort(keys, stable=True)
+        (keys_sorted, gauss_sorted), _ = sort_check(f"k1_edges {name}", keys, gid,
+                                                    so.sort_key_bits(num_tiles))
         for packet_dtype in tb.PACKET_MODES:
-            pack_args = (keys_sorted, perm, gid, packets, num_tiles, packet_dtype)
+            pack_args = (keys_sorted, gauss_sorted, packets, num_tiles, packet_dtype)
             kout = tb.pack_instances(*pack_args)
-            pout = tb._pack_instances_torch(*pack_args[:3], want[2], *pack_args[4:])
+            pout = tb._pack_instances_torch(*pack_args[:2], want[2], *pack_args[3:])
             check(bitwise_equal(kout[0], pout[0]), f"k1_edges {name} {packet_dtype}: inst_t")
-            max_abs_diff(f"k1_edges {name} {packet_dtype}", ("inst_t", "gauss_id", "tile_id",
-                                                              "bounds"), kout, pout)
+            max_abs_diff(f"k1_edges {name} {packet_dtype}", ("inst_t", "tile_id", "bounds"),
+                         kout, pout)
         count = tables[0][:, 3].long()
         steps, straddled = straddled_steps(tables[1], count, gid.long())
         blocks_dead = int((count.reshape(-1)[: n // EXPAND_BLOCK * EXPAND_BLOCK]
@@ -1030,9 +1146,11 @@ def phase_bf16(device):
     """All-bf16 packets: K1''s bf16 pack bitwise against its twin on the
     640x480 scene (tight_cull on and off), then the full-width sorted render
     with bf16 packets through `render` (counts reset just before, read just
-    after) and the bf16 pack's row at that frame's shapes."""
+    after), St' bit for bit its twin on that frame's keys and the bf16
+    pack's row at that frame's shapes."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.render import grid_dims, render
     from gsplat_tpu_torch.synthetic import tiny_scene
 
@@ -1075,9 +1193,11 @@ def phase_bf16(device):
     screen = screen.detach()
     tables = tb._emission_tables(screen, 16, True)
     keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    pack_args = (keys_sorted, perm, gid, packets, gx * gy, "bfloat16")
-    pack_err = max_abs_diff("pack_instances (bf16)", ("inst_t", "gauss_id", "tile_id", "bounds"),
+    key_bits = so.sort_key_bits(gx * gy)
+    sort_precondition("bf16 frame", keys, key_bits)
+    (keys_sorted, gauss_sorted), sort_case = sort_check("bf16 frame", keys, gid, key_bits)
+    pack_args = (keys_sorted, gauss_sorted, packets, gx * gy, "bfloat16")
+    pack_err = max_abs_diff("pack_instances (bf16)", ("inst_t", "tile_id", "bounds"),
                             tb.pack_instances(*pack_args), tb._pack_instances_torch(*pack_args))
     pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
     pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
@@ -1088,9 +1208,10 @@ def phase_bf16(device):
         "instances": out["num_instances"], "frame_ms": frame_ms,
         "frame_ms_median": statistics.median(frame_ms), "launches": launches,
         "vs_float32_frame": {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean())},
+        "sort_instances_case": sort_case,
     }
     row = measured(pack_ms, pack_plain_ms, pack_bound_of(tables[5], live, gx * gy),
-                   pack_err, pack_err, gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm, gid))
+                   pack_err, pack_err, gather_ref_ms=gather_ref_ms(packets, gauss_sorted))
     return summary, {"pack_instances_bf16": row}
 
 
@@ -1495,6 +1616,7 @@ def phase_main_path(device):
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
     from gsplat_tpu_torch.render import grid_dims, render
     from gsplat_tpu_torch.synthetic import tiny_scene
@@ -1531,45 +1653,64 @@ def phase_main_path(device):
     # over a few render() calls; the launch counts were read above)
     profile = device_profile(lambda: render(camera, params, alive, settings, bg, device=DEVICE))
 
-    # --- per-stage breakdown of the same frame, stage by stage
+    # --- per-stage breakdown of the same frame, stage by stage: device ms
+    # between CUDA events, and host ms on the host clock from the stage's
+    # first launch call to its last call's return
     gx, gy = grid_dims(camera, 16)
     num_tiles = gx * gy
-    # (`binning_tables` is Bt' and the read of K, the frame's host sync;
-    # `K1_expand` starts with the host's turnaround from that read's return
-    # to the expand's launch, timed apart on the host clock)
+    key_bits = so.sort_key_bits(num_tiles)
+    # (`binning_tables` is Bt' and the read of K, the frame's host sync, so
+    # its host ms hold the wait for the device; `K1_expand` starts with the
+    # host's turnaround from that read's return to the expand's launch,
+    # timed apart on the host clock)
     stages = ("preprocess", "binning_tables", "K1_expand", "sort", "K1_pack", "K2_blend", "composite")
     stage_ms = {s: [] for s in stages}
+    host_ms = {s: [] for s in stages}
     turnaround_ms = []
     for i in range(WARMUP + TIMED):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
-        ev[0].record()
+        hs = []
+
+        def mark(j):
+            hs.append(time.perf_counter())
+            ev[j].record()
+
+        mark(0)
         screen, _, _ = screen_of((params, alive, camera), settings, device)
-        ev[1].record()
+        mark(1)
         screen = screen.detach()
         tables = tb._emission_tables(screen, 16, True)
         k_read = time.perf_counter()
-        ev[2].record()
+        mark(2)
         keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
         launched = time.perf_counter()
-        ev[3].record()
-        keys_sorted, perm = torch.sort(keys, stable=True)
-        ev[4].record()
-        inst_t, gauss_id, tile_id, bounds = tb.pack_instances(keys_sorted, perm, gid, packets,
-                                                              num_tiles)
-        ev[5].record()
+        mark(3)
+        keys_sorted, gauss_sorted = so.sort_instances(keys, gid, key_bits)
+        mark(4)
+        inst_t, tile_id, bounds = tb.pack_instances(keys_sorted, gauss_sorted, packets, num_tiles)
+        mark(5)
         blended = rc.blend_fwd(inst_t, bounds[:num_tiles], bounds[1:], gx, gy)
-        ev[6].record()
+        mark(6)
         color = blended[..., 0:3] + blended[..., 4:5] * torch.zeros(3, device=device)
         image = torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0)
-        ev[7].record()
+        mark(7)
         torch.cuda.synchronize()
         if i >= WARMUP:
             for j, s in enumerate(stages):
                 stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
+                host_ms[s].append((hs[j + 1] - hs[j]) * 1e3)
             turnaround_ms.append((launched - k_read) * 1e3)
     check(torch.equal(image, img), "stage-by-stage frame differs from render()")
     k = tables[5]
     n = params.xyz.shape[0]
+
+    # --- St' against its twin bit for bit on the frame's keys (the keys'
+    # largest live bit checked first, outside the timed window) and on
+    # adversarial keys; its row on the frame
+    largest_key = sort_precondition("render frame", keys, key_bits)
+    _, sort_frame = sort_check("render frame", keys, gid, key_bits)
+    sort_cases = [{**sort_frame, "largest_live_key": largest_key}, *sort_edges(device)]
+    sort_measure = sort_row(keys, gid, key_bits)
 
     # --- K2' against its plain twin on the whole frame: max abs err 0 and
     # n_contrib exact; the twin's one call gives its time and the pairs each
@@ -1591,10 +1732,9 @@ def phase_main_path(device):
     exp_args = (*tables[:5], screen, k, gx, True)
     exp_err = expand_errors("expand_instances", (keys, gid, packets),
                             tb._expand_instances_torch(*exp_args), tables[0])
-    pack_args = (keys_sorted, perm, gid, packets, num_tiles)
-    pack_err = max_abs_diff("pack_instances", ("inst_t", "gauss_id", "tile_id", "bounds"),
-                            (inst_t, gauss_id, tile_id, bounds),
-                            tb._pack_instances_torch(*pack_args))
+    pack_args = (keys_sorted, gauss_sorted, packets, num_tiles)
+    pack_err = max_abs_diff("pack_instances", ("inst_t", "tile_id", "bounds"),
+                            (inst_t, tile_id, bounds), tb._pack_instances_torch(*pack_args))
 
     def ms_pair(kernel, plain, args, reps, plain_reps):
         return cuda_time(lambda: kernel(*args), reps), cuda_time(lambda: plain(*args), plain_reps)
@@ -1603,7 +1743,6 @@ def phase_main_path(device):
     pack_ms, pack_plain_ms = ms_pair(tb.pack_instances, tb._pack_instances_torch, pack_args, 20, 3)
     blend_args = (inst_t, starts, ends, gx, gy)
     blend_ms = cuda_time(lambda: rc.blend_fwd(*blend_args), 20)
-    sort_ms = cuda_time(lambda: torch.sort(keys, stable=True), 20)
 
     # Bt' against its twin bit for bit on the frame, on it projected without
     # the tight cull, and on the edge rows of `emission_edge_screen` (both
@@ -1634,8 +1773,9 @@ def phase_main_path(device):
         # relative ones too)
         "emission_tables": bt_row,
         "expand_instances": measured(exp_ms, exp_plain_ms, exp_bound, exp_err, exp_err),
+        "sort_instances": sort_measure,
         "pack_instances": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
-                                   gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm, gid)),
+                                   gather_ref_ms=gather_ref_ms(packets, gauss_sorted)),
         "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel,
                               walked_pairs=walked, evaluated_pairs=pairs,
                               culled_share=cull["culled_share"]["blocks_8x4"]),
@@ -1647,11 +1787,15 @@ def phase_main_path(device):
         "walked_pairs": walked, "evaluated_pairs": pairs, "warp_cull": cull, "setup_s": setup_s,
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "device_profile": profile,
+        "kernels_per_frame": profile["kernels_per_frame"],
         "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
+        "stage_host_ms_median": {s: statistics.median(v) for s, v in host_ms.items()},
+        "stage_host_ms": host_ms,
         "k_read_to_expand_launch_ms_median": statistics.median(turnaround_ms),
         "k_read_to_expand_launch_ms": turnaround_ms,
-        "emission_tables_cases": bt_cases,
-        "sort_ms": sort_ms, "launches": launches,
+        "emission_tables_cases": bt_cases, "sort_instances_cases": sort_cases,
+        # the library route St' replaced: torch.sort and the gather of the gids
+        "sort_ms": sort_measure["library_ms"], "launches": launches,
         "blend_full_frame_max_abs_err": blend_err,
         "peak_mem_gib": peak_gib,
     }
@@ -2020,17 +2164,17 @@ def phase_train(device, blend_mode="sorted"):
                         (losses, "loss_fwd", "lf0", "lf1"), (losses, "loss_bwd", "lb0", "lb1"),
                         (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
-                        (tb, "emission_tables", "bt0", "bt1"),
+                        (tb, "emission_tables", "bt0", "bt1"), (tb, "sort_instances", "st0", "st1"),
                         (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
                         (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
-    # `forward` holds `forward_projection` and `forward_binning_tables` (Bt'
-    # and the read of K), `loss` holds `loss_kernel` and
+    # `forward` holds `forward_projection`, `forward_binning_tables` (Bt'
+    # and the read of K) and `forward_sort` (St'), `loss` holds `loss_kernel` and
     # `loss_backward` holds `loss_backward_kernel`; what the projection
     # backward's kernel takes (`projection_backward`) is split from the
     # autograd steps before it and the statistics after it (until Adam);
     # `adam` is the Adam kernel with the freeze, `after_adam` what follows
     spans = (("forward", "fwd0", "fwd1"), ("forward_projection", "pf0", "pf1"),
-             ("forward_binning_tables", "bt0", "bt1"),
+             ("forward_binning_tables", "bt0", "bt1"), ("forward_sort", "st0", "st1"),
              ("loss", "fwd1", "loss1"), ("loss_kernel", "lf0", "lf1"),
              ("loss_backward", "loss1", "k3_0"), ("loss_backward_kernel", "lb0", "lb1"),
              (bwd_stage, "k3_0", "k3_1"),
@@ -2047,10 +2191,10 @@ def phase_train(device, blend_mode="sorted"):
             if i >= WARMUP:
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
-    k3_args, k4_args, pack_args, exp_args, pf_args, pb_args, adam_args, lf_args = (
+    k3_args, k4_args, pack_args, exp_args, sort_args, pf_args, pb_args, adam_args, lf_args = (
         marks.args[a] for a in (bwd_attr, "reduce_by_gid_cuda", "pack_instances",
-                                "expand_instances", "project_fwd", "project_bwd", "adam_rows",
-                                "loss_fwd"))
+                                "expand_instances", "sort_instances", "project_fwd",
+                                "project_bwd", "adam_rows", "loss_fwd"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
@@ -2064,7 +2208,7 @@ def phase_train(device, blend_mode="sorted"):
     }
     with torch.no_grad():  # the saved forward output carries requires_grad
         rows = (kernel_rows_oit_train(k3_args) if oit
-                else kernel_rows_train(k3_args, k4_args, pack_args, exp_args))
+                else kernel_rows_train(k3_args, k4_args, pack_args, exp_args, sort_args))
     if not oit:
         rows.update(kernel_rows_projection_train(pf_args, pb_args))
         rows.update(kernel_rows_adam(adam_args))
@@ -2096,9 +2240,9 @@ def kernel_rows_projection_train(pf_args, pb_args):
     }
 
 
-def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
-    """K3', K4', Bt' and the hybrid K1' pack and expand on the inputs one
-    train step gave them: time, plain twin time, error and bound."""
+def kernel_rows_train(k3_args, k4_args, pack_args, exp_args, sort_args):
+    """K3', K4', Bt', St' and the hybrid K1' pack and expand on the inputs
+    one train step gave them: time, plain twin time, error and bound."""
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
@@ -2173,25 +2317,34 @@ def kernel_rows_train(k3_args, k4_args, pack_args, exp_args):
     exp_ms = cuda_time(lambda: tb.expand_instances(*exp_args), 20)
     exp_plain_ms = cuda_time(lambda: tb._expand_instances_torch(*exp_args), 3)
     exp_bound, _, _, _ = expand_bound_of((*exp_args[:5], exp_args[6]))
-    keys_sorted, perm, kgid, packets, pt = pack_args[:5]
-    check(pack_args[5] == "hybrid", "the train step packs hybrid instances")
+    keys_sorted, gauss_sorted, packets, pt, mode = pack_args
+    check(mode == "hybrid", "the train step packs hybrid instances")
     outs = tb.pack_instances(*pack_args)
-    pack_err = max_abs_diff("pack_instances (hybrid)", ("inst_t", "gauss_id", "tile_id", "bounds"),
+    pack_err = max_abs_diff("pack_instances (hybrid)", ("inst_t", "tile_id", "bounds"),
                             outs, tb._pack_instances_torch(*pack_args))
     pack_ms = cuda_time(lambda: tb.pack_instances(*pack_args), 20)
     pack_plain_ms = cuda_time(lambda: tb._pack_instances_torch(*pack_args), 3)
-    live = int(torch.unique(kgid).numel())
+    live = int(torch.unique(gauss_sorted).numel())
     pack_bound = pack_bound_of(keys_sorted.shape[0], live, pt)
     check(exp_ms >= exp_bound[0] and pack_ms >= pack_bound[0],
           f"K1' under its bound on the train frame: expand {exp_ms} / {exp_bound[0]}, "
           f"pack {pack_ms} / {pack_bound[0]}")
 
+    # St' on the train frame's keys: bit for bit its twin, and its output
+    # the one the step packed; timed
+    keys, kgid, key_bits = sort_args
+    top = sort_precondition("train frame", keys, key_bits)
+    (st_keys, st_gid), st_case = sort_check("train frame", keys, kgid, key_bits)
+    check(torch.equal(st_keys, keys_sorted) and torch.equal(st_gid, gauss_sorted),
+          "St' on the train frame differs from what the step packed")
+    st_row = {**sort_row(keys, kgid, key_bits), **st_case, "largest_live_key": top}
+
     return {
-        # Bt' on the train frame (its row is the render frame's)
+        # Bt' and St' on the train frame (their rows are the render frame's)
         "emission_tables_train_frame": bt_row,
+        "sort_instances_train_frame": st_row,
         "pack_instances_hybrid": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
-                                          gather_ref_ms=gather_ref_ms(packets, keys_sorted, perm,
-                                                                      kgid)),
+                                          gather_ref_ms=gather_ref_ms(packets, gauss_sorted)),
         # the expand on the train frame (its row is the render frame's)
         "expand_instances_train_frame": measured(exp_ms, exp_plain_ms, exp_bound, exp_err,
                                                  exp_err, rows=int(exp_args[0].shape[0])),
@@ -2860,11 +3013,12 @@ class Swaps:
 
 def eval_counts(iterations, renders):
     """Launches of a training run with `renders` evaluation renders: the
-    projection forward, Bt', K1' (expand, hybrid pack) and K2' per iteration and
-    per render, K3', K4', the projection backward, the loss forward and
-    backward and Adam per iteration."""
+    projection forward, Bt', K1' (expand, hybrid pack), St' and K2' per
+    iteration and per render, K3', K4', the projection backward, the loss
+    forward and backward and Adam per iteration."""
     return {"project_fwd": iterations + renders, "emission_tables": iterations + renders,
-            "expand_instances": iterations + renders, "pack_instances_hybrid": iterations + renders,
+            "expand_instances": iterations + renders, "sort_instances": iterations + renders,
+            "pack_instances_hybrid": iterations + renders,
             "blend_fwd": iterations + renders, "blend_bwd": iterations,
             "reduce_by_gid": iterations, "project_bwd": iterations,
             **{k: iterations for k in STEP_KERNELS}}
@@ -3061,7 +3215,8 @@ def phase_checkpoint_resume(device, root: Path):
         eval_ms.append((time.perf_counter() - t0) * 1e3)
     eval_launches = read_counts()
     check_launches(eval_launches, {"project_fwd": 4, "emission_tables": 4, "expand_instances": 4,
-                                   "pack_instances_hybrid": 4, "blend_fwd": 4},
+                                   "sort_instances": 4, "pack_instances_hybrid": 4,
+                                   "blend_fwd": 4},
                    "evaluate_test, 2 views twice")
     l1s, psnrs = [], []
     with torch.no_grad():
@@ -3426,7 +3581,7 @@ def phase_bench():
     grad = 1 + bench.GRAD_ITERS + bench.PROFILED_CALLS  # calls per gradient point
     fwd = 1 + bench.RENDER_ITERS + bench.PROFILED_CALLS
     want = {"project_fwd": 3 * grad + fwd, "emission_tables": 3 * grad + fwd,
-            "expand_instances": 3 * grad + fwd,
+            "expand_instances": 3 * grad + fwd, "sort_instances": 3 * grad + fwd,
             "pack_instances": grad, "pack_instances_hybrid": 2 * grad + fwd,
             "blend_fwd": 3 * grad + fwd, "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad,
             "project_bwd": 3 * grad}
@@ -3515,6 +3670,7 @@ def phase_quality_fixture(device):
         want = {"project_fwd": views + n_it + renders + test_views,
                 "emission_tables": views + n_it + renders + test_views,
                 "expand_instances": views + n_it + renders + test_views,
+                "sort_instances": views + n_it + renders + test_views,
                 "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
                 "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
                 "reduce_by_gid": n_it, "project_bwd": n_it, "adam_rows": n_it,
@@ -3998,6 +4154,23 @@ def sass_k1_k4():
     return out
 
 
+def sass_sort():
+    """St''s kernels as built, the histogram and the pass kernel of each
+    digit position (`sort_instances_pass<P>`): registers, stack, shared and
+    local memory (`cuobjdump -res-usage`) and the local loads and stores in
+    their SASS. A spill is recorded, not refused."""
+    ops, use = sass_counts("sort"), res_usage("sort")
+    out = {}
+    for f, u in use.items():
+        m = re.search(r"sort_instances_(hist|pass)(?:ILi(\d+)E)?", f)
+        if m:
+            o = ops.get(f, {})
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            out[name] = {**u, "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
+    check("hist" in out and "pass<0>" in out, f"St': kernels found {sorted(out)}")
+    return out
+
+
 def sass_projection():
     """The projection kernels as built, one entry per instantiation
     (`project_fwd_kernel<degree, aa, tight>`, `project_bwd_kernel<degree,
@@ -4078,6 +4251,7 @@ def phase_sass():
                      "loop_opcodes": dict(got["loop"].most_common(20))}
     out.update(sass_blend())
     out.update(sass_k1_k4())
+    out["sort_instances"] = sass_sort()
     out["projection"] = sass_projection()
     out["step_kernels"] = sass_step_kernels()
     return out
@@ -4349,6 +4523,7 @@ KERNEL_ROWS = (
     ("loss_bwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
     ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
      "gsplat_tpu/ops/binning.py:485"),
+    ("sort_instances", "train", "gsplat_tpu_torch/csrc/sort.cu", SORT_REPLACES),
     ("pack_instances", "render", "gsplat_tpu_torch/csrc/binning.cu",
      "gsplat_tpu/ops/binning.py:485"),
     ("pack_instances_hybrid", "train", "gsplat_tpu_torch/csrc/binning.cu",
@@ -4382,6 +4557,7 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
                  ("emission_tables", "render", "emission_tables_kernel"),
                  ("project_bwd", "train", "project_bwd_kernel"),
                  ("expand_instances", "render", "expand_instances_kernel"),
+                 ("sort_instances", "render", "sort_instances_"),
                  ("pack_instances", "render", "pack_instances_kernel"),
                  ("blend_fwd", "render", "blend_fwd_kernel"),
                  ("pack_instances_hybrid", "train", "pack_instances_kernel"),
@@ -4397,8 +4573,9 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
 def attach_profiled(measures, profiles):
     """Each path kernel's device time from its path's profile beside its
     timed loop (`ms`, CUDA events around back-to-back wrapper calls, which
-    a slow host can stretch); neither may be under the bound. Bt' and K1''s
-    expand also get their train-frame time, K1' expand + pack per path."""
+    a slow host can stretch); neither may be under the bound. Bt', St' and
+    K1''s expand also get their train-frame time, K1' expand + pack per
+    path."""
     for row, path, func in PROFILED_ROWS:
         ms = profiles[path][func]
         check(ms >= measures[row]["bound_ms"], f"{row}: {ms} ms in the {path} profile, under "
@@ -4406,6 +4583,7 @@ def attach_profiled(measures, profiles):
         measures[row]["profiled_ms"] = ms
     measures["emission_tables"]["train_frame"]["profiled_ms"] = profiles["train"][
         "emission_tables_kernel"]
+    measures["sort_instances"]["train_frame"]["profiled_ms"] = profiles["train"]["sort_instances_"]
     exp = measures["expand_instances"]
     exp["train_frame"]["profiled_ms"] = profiles["train"]["expand_instances_kernel"]
     exp["k1_total_profiled_ms"] = {
@@ -4511,6 +4689,8 @@ def main() -> int:
     # K4': its build facts and what its reductions do with subnormals
     measures["emission_tables"]["train_frame"] = measures.pop("emission_tables_train_frame")
     measures["emission_tables"]["sass"] = sass["emission_tables"]
+    measures["sort_instances"].update(train_frame=measures.pop("sort_instances_train_frame"),
+                                      sass=sass["sort_instances"])
     exp_train = measures.pop("expand_instances_train_frame")
     measures["expand_instances"].update(
         train_frame=exp_train, sass=sass["expand_instances"],

@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binning", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
+SOURCES = ("binning", "sort", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
            "probe_skeleton", "probe_ops", "projection", "adam", "loss")
 
 NVCC_FLAGS = (
@@ -49,7 +49,11 @@ _SIGNATURES = {
                                _P, _LL, _LL, _P),
         "gs_expand_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _P, _P, _P, _P),
-        "gs_pack_instances": (_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P),
+        "gs_pack_instances": (_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
+    },
+    "sort": {
+        "gs_sort_layout": (_LL, _I, _P),
+        "gs_sort_instances": (_P, _P, _LL, _I, _P, _P, _P, _P, _P, _LL, _LL, _P),
     },
     "rasterize_fwd": {
         "gs_blend_fwd": (_P, _LL, _P, _P, _I, _I, _I, _P, _P),

@@ -38,7 +38,8 @@
 // attribute columns, which then ride one wide `lax.sort` as payload.
 //
 // On the GPU a store at a prefix-sum offset is cheap, so the work splits
-// around the sort (`torch.sort(stable=True)` in the wrapper) into two kernels:
+// around the sort (kernel St', `csrc/sort.cu`, which carries the gid as its
+// payload) into two kernels:
 //
 //   gs_expand_instances  a block of 256 threads owns 256 consecutive
 //                        gaussians, whose instance slots are one contiguous
@@ -62,10 +63,10 @@
 //                        unrounded, staged in shared memory and stored as
 //                        consecutive float4 over the block's rows. Dead rows
 //                        are never written.
-//   gs_pack_instances    one thread per sorted slot reads its gaussian's
-//                        packet row (three float4 loads: two 32-byte sectors)
-//                        into the (16, K) float32 instance table and writes
-//                        the tile boundaries. `mode` is the packet mode:
+//   gs_pack_instances    one thread per sorted slot reads its sorted gid
+//                        and its gaussian's packet row (three float4 loads:
+//                        two 32-byte sectors) into the (16, K) float32
+//                        instance table and writes the tile boundaries. `mode` is the packet mode:
 //                        0 float32 (every row exact); 1 hybrid (the training
 //                        default, binning.py:737-795), the folded conic,
 //                        opacity and rgb rows 2-8 rounded to bf16 (nearest
@@ -80,10 +81,10 @@
 // consecutive keys and gids (the slots of one step of the walk) or 512
 // consecutive bytes of packet rows, and each load of the run tables reads
 // 512 consecutive bytes less the rows that need none. Pack: the sorted
-// keys and the permutation are read coalesced, then two dependent random
-// reads per instance (the slot's gid, 4 bytes, and its gaussian's packet
-// row, two sectors, through the read-only path), where the five screen
-// arrays cost six or seven sectors; the 16-row table stores are coalesced.
+// keys and gids are read coalesced, then one random read per instance (its
+// gaussian's packet row, two sectors, through the read-only path), where
+// the five screen arrays cost six or seven sectors; the 16-row table
+// stores are coalesced.
 //
 // Every value is copied or computed with exact integer or IEEE float32
 // operations (built with -fmad=false), and rounded to bf16 the one way the
@@ -467,12 +468,10 @@ __global__ void __launch_bounds__(EXPAND_THREADS) expand_instances_kernel(
 
 __global__ void pack_instances_kernel(
     const long long* __restrict__ keys_sorted,  // (K,)
-    const long long* __restrict__ perm,         // (K,) sort permutation
-    const int* __restrict__ gids,               // (K,) unsorted slot gids
+    const int* __restrict__ gauss_sorted,       // (K,) the sorted slots' gids
     const float4* __restrict__ packets,         // (N, 12) as 3 float4 per row
     long long k, int num_tiles, int mode,
     float* __restrict__ inst_t,                 // (16, K)
-    int* __restrict__ gauss_id,                 // (K,)
     int* __restrict__ tile_id,                  // (K,)
     int* __restrict__ bounds)                   // (T+1,)
 {
@@ -488,8 +487,7 @@ __global__ void pack_instances_kernel(
     for (int t = prev + 1; t <= cur; ++t) bounds[t] = (int)i;
     if (i == k) return;
 
-    const int g = gids[perm[i]];
-    gauss_id[i] = g;
+    const int g = gauss_sorted[i];
     tile_id[i] = cur;
     const float4* row = packets + 3 * (size_t)g;
     const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
@@ -544,15 +542,13 @@ extern "C" int gs_expand_instances(
 }
 
 extern "C" int gs_pack_instances(
-    const void* keys_sorted, const void* perm, const void* gids, const void* packets,
-    long long k, int num_tiles, int mode, void* inst_t, void* gauss_id,
-    void* tile_id, void* bounds, void* stream)
+    const void* keys_sorted, const void* gauss_sorted, const void* packets, long long k,
+    int num_tiles, int mode, void* inst_t, void* tile_id, void* bounds, void* stream)
 {
     const int threads = 256;
     const long long blocks = (k + 1 + threads - 1) / threads;  // K + 1 threads
     pack_instances_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const long long*)keys_sorted, (const long long*)perm, (const int*)gids,
-        (const float4*)packets, k, num_tiles, mode, (float*)inst_t,
-        (int*)gauss_id, (int*)tile_id, (int*)bounds);
+        (const long long*)keys_sorted, (const int*)gauss_sorted, (const float4*)packets, k,
+        num_tiles, mode, (float*)inst_t, (int*)tile_id, (int*)bounds);
     return (int)cudaGetLastError();
 }

@@ -5,9 +5,10 @@ kernel's input, the `PackedBins` of the JAX package (`binning.py:801-809`):
 instances in (tile, depth bits, gaussian id) order, per-tile [start, end)
 ranges and the (16, K) float32 instance table.
 
-On a CUDA tensor it runs three launches of `csrc/binning.cu`: kernel Bt'
-(`emission_tables`) for the emission tables, then kernel K1' (replacing
-the Pallas `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two:
+On a CUDA tensor it runs kernel Bt' (`emission_tables`, `csrc/binning.cu`)
+for the emission tables, then kernel K1' (replacing the Pallas
+`_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two launches around
+kernel St', the sort (`ops/sort.py`, `csrc/sort.cu`):
 
 - `emission_tables`: per gaussian, the tight-cull row runs of
   `compute_row_runs` (`t_lo`, `cum_run`, the trimmed flag, `tiles_post`),
@@ -22,14 +23,15 @@ the Pallas `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two:
   JAX package's rect decode or, under `tight_cull`, its run-trimmed decode
   (`RUN_HMAX` = 8). Each slot gets the int64 key `(tile << 32) | depth_bits`
   and its gaussian id. Slots go out in gid order, so a stable sort on the
-  key gives the JAX total order (tile, depth bits, gid). The same launch
-  writes one (12,) float32 packet row per live gaussian: the ten table
+  key gives the JAX total order (tile, depth bits, gid): St' sorts the
+  key's live bits (`sort.sort_key_bits`) and carries the gid. The same
+  launch writes one (12,) float32 packet row per live gaussian: the ten table
   columns (conic pre-folded to [-a/2, -b, -c/2], invz = 1/max(depth, 0.2)),
   unrounded, and two zeros; rows of dead gaussians are left unwritten.
-- `pack_instances`: after the sort, each sorted slot copies its gaussian's
-  packet row into its column of the instance table, rounded as the packet
-  mode says, and writes the tile boundaries, which give `tile_start` and
-  `tile_end` without a searchsorted.
+- `pack_instances`: after the sort, each sorted slot reads its sorted gid
+  and copies its gaussian's packet row into its column of the instance
+  table, rounded as the packet mode says, and writes the tile boundaries,
+  which give `tile_start` and `tile_end` without a searchsorted.
 
 Packet modes (`packet_dtype`): "float32" stores every row exactly;
 "hybrid", the training default, rounds the folded conic, opacity and rgb
@@ -43,11 +45,11 @@ so the blends compute exactly what the JAX kernels compute after
 `blk.astype(float32)`; a table stored in bf16 (half the bytes) is later
 performance work.
 
-The sort stays in PyTorch, as the JAX package leaves it to XLA
-(`torch.sort(stable=True)` stands in for `lax.sort`). On a CPU tensor,
-`pack_bins` runs the plain twin `pack_bins_torch`, which computes the same
-function with tensor ops (`compute_row_runs` and `torch.cumsum` for the
-tables).
+The JAX package leaves the sort to XLA (`lax.sort`, `binning.py:758`);
+the port sorts with St' on the card. On a CPU tensor, `pack_bins` runs the
+plain twin `pack_bins_torch`, which computes the same function with tensor
+ops (`compute_row_runs` and `torch.cumsum` for the tables, `torch.sort`
+and a gather for the sort).
 
 Deliberate difference: the instance buffer is sized for each frame from the
 prefix sum, as the CUDA reference does (`rasterize_points.cu:27-33`). So
@@ -64,6 +66,7 @@ import itertools
 import torch
 
 from gsplat_tpu_torch.ops.projection import ScreenGaussians
+from gsplat_tpu_torch.ops.sort import sort_instances, sort_instances_torch, sort_key_bits
 
 # Max rect height (in tile rows) for run-trimmed emission; taller splats fall
 # back to full-rect emission
@@ -459,23 +462,21 @@ def _check_packet_dtype(packet_dtype: str) -> None:
         raise ValueError(f"packet_dtype={packet_dtype!r}: expected one of {sorted(PACKET_MODES)}")
 
 
-def _pack_instances_torch(keys_sorted, perm, gid, packets, num_tiles, packet_dtype="float32"):
-    """Plain twin of `pack_instances`: (inst_t (16, K), gauss_id, tile_id,
-    bounds (T+1,)) from the sorted keys, the sort permutation and the
-    packet rows."""
+def _pack_instances_torch(keys_sorted, gauss_sorted, packets, num_tiles, packet_dtype="float32"):
+    """Plain twin of `pack_instances`: (inst_t (16, K), tile_id, bounds
+    (T+1,)) from the sorted keys, their gaussian ids and the packet rows."""
     _check_packet_dtype(packet_dtype)
     k = keys_sorted.shape[0]
     dev = keys_sorted.device
-    gauss_id = gid[perm]
     tile_id = (keys_sorted >> 32).to(torch.int32)
     inst_t = torch.zeros((N_ROWS, k), dtype=torch.float32, device=dev)
-    inst_t[:10] = packets[gauss_id.long(), :10].T
+    inst_t[:10] = packets[gauss_sorted.long(), :10].T
     rows = _ROUNDED_ROWS[packet_dtype]
     inst_t[rows] = round_bf16(inst_t[rows])
     bounds = torch.searchsorted(
         tile_id, torch.arange(num_tiles + 1, device=dev, dtype=torch.int32)
     ).to(torch.int32)
-    return inst_t, gauss_id, tile_id, bounds
+    return inst_t, tile_id, bounds
 
 
 def _check_inputs(what, device, *specs):
@@ -540,7 +541,7 @@ def expand_instances(rect, cum_excl, trimmed, t_lo, cum_run, screen, total,
 expand_instances.launches = 0
 
 
-def pack_instances(keys_sorted, perm, gid, packets, num_tiles, packet_dtype="float32"):
+def pack_instances(keys_sorted, gauss_sorted, packets, num_tiles, packet_dtype="float32"):
     """Kernel K1', launch 2: instance table + tile boundaries on the card.
 
     Same contract as `_pack_instances_torch`, every packet mode included.
@@ -554,27 +555,25 @@ def pack_instances(keys_sorted, perm, gid, packets, num_tiles, packet_dtype="flo
     k = keys_sorted.shape[0]
     dev = keys_sorted.device
     _check_inputs("pack_instances", dev, (keys_sorted, torch.int64, (k,)),
-                  (perm, torch.int64, (k,)), (gid, torch.int32, (k,)))
+                  (gauss_sorted, torch.int32, (k,)))
     _check_packets(packets, packets.shape[0])
     if packets.device != dev:
         raise ValueError(f"pack_instances: packets on {packets.device}, keys on {dev}")
-    keys_sorted, perm, gid = keys_sorted.contiguous(), perm.contiguous(), gid.contiguous()
+    keys_sorted, gauss_sorted = keys_sorted.contiguous(), gauss_sorted.contiguous()
     inst_t = torch.empty((N_ROWS, k), dtype=torch.float32, device=dev)
-    gauss_id = torch.empty((k,), dtype=torch.int32, device=dev)
     tile_id = torch.empty((k,), dtype=torch.int32, device=dev)
     bounds = torch.empty((num_tiles + 1,), dtype=torch.int32, device=dev)
     lib = _kernels.load("binning")
     err = lib.gs_pack_instances(
-        keys_sorted.data_ptr(), perm.data_ptr(), gid.data_ptr(), packets.data_ptr(),
-        k, num_tiles, PACKET_MODES[packet_dtype],
-        inst_t.data_ptr(), gauss_id.data_ptr(), tile_id.data_ptr(), bounds.data_ptr(),
+        keys_sorted.data_ptr(), gauss_sorted.data_ptr(), packets.data_ptr(), k, num_tiles,
+        PACKET_MODES[packet_dtype], inst_t.data_ptr(), tile_id.data_ptr(), bounds.data_ptr(),
         _kernels.stream(dev),
     )
     _kernels.check(err, "pack_instances")
     pack_instances.launches += 1
     pack_instances.launches_hybrid += packet_dtype == "hybrid"
     pack_instances.launches_bf16 += packet_dtype == "bfloat16"
-    return inst_t, gauss_id, tile_id, bounds
+    return inst_t, tile_id, bounds
 
 
 # all launches, and those of them with hybrid and with bf16 packets
@@ -583,19 +582,18 @@ pack_instances.launches_hybrid = 0
 pack_instances.launches_bf16 = 0
 
 
-def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, tables, expand,
+def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, tables, expand, sort,
           pack) -> PackedBins:
     num_tiles = grid_x * grid_y
     screen = screen.detach()
     rect, cum_excl, trimmed, t_lo, cum_run, total = tables(screen, tile, tight_cull)
     keys, gid, packets = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen,
                                 total, grid_x, tight_cull)
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    inst_t, gauss_id, tile_id, bounds = pack(keys_sorted, perm, gid, packets, num_tiles,
-                                             packet_dtype)
+    keys_sorted, gauss_sorted = sort(keys, gid, sort_key_bits(num_tiles))
+    inst_t, tile_id, bounds = pack(keys_sorted, gauss_sorted, packets, num_tiles, packet_dtype)
     return PackedBins(
         inst_t=inst_t,
-        gauss_id=gauss_id,
+        gauss_id=gauss_sorted,
         tile_id=tile_id,
         tile_start=bounds[:num_tiles],
         tile_end=bounds[1:],
@@ -613,7 +611,8 @@ def pack_bins_torch(
 ) -> PackedBins:
     """Plain PyTorch twin of `pack_bins`, on any device."""
     return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
-                 _emission_tables_torch, _expand_instances_torch, _pack_instances_torch)
+                 _emission_tables_torch, _expand_instances_torch, sort_instances_torch,
+                 _pack_instances_torch)
 
 
 def pack_bins(
@@ -627,13 +626,13 @@ def pack_bins(
     """Fused binning + instance packing (`gsplat_tpu/ops/binning.py:620`).
 
     Same instance order as `bin_gaussians`: (tile, depth bits, gaussian id).
-    On a CUDA tensor through kernels Bt' (`emission_tables`) and K1'
-    (`expand_instances`, `pack_instances`); on a CPU tensor through
-    `pack_bins_torch`.
+    On a CUDA tensor through kernels Bt' (`emission_tables`), K1'
+    (`expand_instances`, `pack_instances`) and St' (`sort_instances`); on a
+    CPU tensor through `pack_bins_torch`.
     Non-differentiable structure: the screen quantities are detached, as
     `binning.py:657` stops their gradients.
     """
     if screen.depth.is_cuda:
         return _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype,
-                     emission_tables, expand_instances, pack_instances)
+                     emission_tables, expand_instances, sort_instances, pack_instances)
     return pack_bins_torch(screen, grid_x, grid_y, tile, tight_cull, packet_dtype)

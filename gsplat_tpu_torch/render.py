@@ -1,9 +1,9 @@
 """High-level renderer: counterpart of `gsplat_tpu/render.py`.
 
-One view goes through `preprocess` (plain PyTorch), `pack_bins` (kernel K1'
-plus one `torch.sort`), `blend_tiles_cuda` (sorted blend: kernel K2'
-forward, K3' and K4' in its backward; OIT blend: K5' forward, K6' and K4'
-in its backward, the quotient in plain PyTorch), then the background
+One view goes through `preprocess` (the projection kernel), `pack_bins`
+(kernels Bt', K1' and St', the sort), `blend_tiles_cuda` (sorted blend:
+kernel K2' forward, K3' and K4' in its backward; OIT blend: K5' forward,
+K6' and K4' in its backward, the quotient in plain PyTorch), then the background
 composite, `tiles_to_image`, exposure and clip in plain PyTorch. Images are
 HWC, as in the JAX package. On a CPU device the kernels' plain twins run.
 

@@ -49,6 +49,7 @@ from gsplat_tpu.ops import binning as jb
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.ops import binning as tb
 from gsplat_tpu_torch.ops.projection import ScreenGaussians
+from gsplat_tpu_torch.ops.sort import sort_instances_torch, sort_key_bits
 from gsplat_tpu_torch.scripts import ablation, tables_ablate
 from gsplat_tpu_torch.synthetic import EMISSION_EDGE_KINDS, emission_edge_screen
 from tests.test_torch_binning import screen_pair
@@ -229,10 +230,10 @@ def check_k1(screen, tables, tight, gx=GRID[0], num_tiles=GRID[0] * GRID[1]):
     live = rect[:, 3] > 0
     assert torch.equal(keys, wkeys) and torch.equal(gid, wgid)
     assert torch.equal(packets[live].view(torch.int32), wpackets[live].view(torch.int32))
-    keys_sorted, perm = torch.sort(keys, stable=True)
+    keys_sorted, gauss_sorted = sort_instances_torch(keys, gid, sort_key_bits(num_tiles))
     for mode in tb.PACKET_MODES:
-        got = tb.pack_instances(keys_sorted, perm, gid, packets, num_tiles, mode)
-        want = tb._pack_instances_torch(keys_sorted, perm, gid, wpackets, num_tiles, mode)
+        got = tb.pack_instances(keys_sorted, gauss_sorted, packets, num_tiles, mode)
+        want = tb._pack_instances_torch(keys_sorted, gauss_sorted, wpackets, num_tiles, mode)
         assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), mode
         for a, b in zip(got[1:], want[1:]):
             assert torch.equal(a, b), mode

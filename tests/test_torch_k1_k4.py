@@ -36,6 +36,7 @@ from gsplat_tpu.ops.rasterize_jnp import blend_tiles_jnp, blend_tiles_oit_jnp
 from gsplat_tpu_torch.ops import binning as tb
 from gsplat_tpu_torch.ops import rasterize_cuda as rc
 from gsplat_tpu_torch.ops import reduce as rd
+from gsplat_tpu_torch.ops.sort import sort_instances_torch, sort_key_bits
 from tests import test_torch_blend_bwd as bb
 from tests import test_torch_oit as oit
 from tests.test_torch_binning import CAP, screen_pair
@@ -63,8 +64,8 @@ def test_packets_match_jax_table_columns(seed, tight_cull):
                                   np.asarray(jp.inst_t)[:10, :k].view(np.uint32))
     assert not rows[:, 10:].any()
     # the pack twin copies the rows into the table exactly
-    keys_sorted, perm = torch.sort(keys, stable=True)
-    inst_t = tb._pack_instances_torch(keys_sorted, perm, gid, packets, gx * gy)[0]
+    keys_sorted, gauss_sorted = sort_instances_torch(keys, gid, sort_key_bits(gx * gy))
+    inst_t = tb._pack_instances_torch(keys_sorted, gauss_sorted, packets, gx * gy)[0]
     np.testing.assert_array_equal(inst_t.numpy(), np.asarray(jp.inst_t)[:, :k])
 
 
@@ -200,9 +201,9 @@ def test_k1_wrappers_refuse_sliced_packets():
     tables = tb._emission_tables(ts, 16, True)
     packets = tb.gaussian_packets(ts)
     keys, gid, _ = tb._expand_instances_torch(*tables[:5], ts, tables[5], gx, True)
-    keys_sorted, perm = torch.sort(keys, stable=True)
+    keys_sorted, gauss_sorted = sort_instances_torch(keys, gid, sort_key_bits(4))
     with pytest.raises(ValueError, match="CUDA"):
-        tb.pack_instances(keys_sorted, perm, gid, packets, 4)
+        tb.pack_instances(keys_sorted, gauss_sorted, packets, 4)
     with pytest.raises(ValueError, match="packets"):
         tb._check_packets(torch.zeros((200, 16))[:, :12], 200)
     with pytest.raises(ValueError, match="packets"):
