@@ -46,7 +46,7 @@ JSON line per phase:
    counted and required), and on the flagship render frame, timed there
    beside the twins and the byte bound (the train frame is checked and
    timed on the train step's own inputs in 14);
-3. K1' (binning: `expand_instances` + `pack_instances`, St' between) against its plain
+3. K1' (binning: `expand_instances` + `pack_instances`, St'' between) against its plain
    twin on the same device, on the seeded 65,536-gaussian scene at 640x480,
    SH 3: ranges and instance order equal, instance table bitwise equal, with
    tight_cull on and off, on an empty scene, and with hybrid packets (rows
@@ -55,7 +55,7 @@ JSON line per phase:
    tables on a 1080p tile grid (one gaussian on all 8,160 tiles, runs
    straddling the expand's 256-slot steps, whole blocks of dead rows, N =
    256 m +- 1, trimmed gaussians with empty rows), expand keys, gids and
-   live packet rows, St' on its keys, then the pack in all three packet
+   live packet rows, St'' on its keys, then the pack in all three packet
    modes;
 5. `subnormals`: what the scalar `atomicAdd`, the v4 and v2 `red` forms,
    K4' and its twin do with a subnormal addend, a subnormal sum of normal
@@ -80,19 +80,25 @@ JSON line per phase:
 10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
-   after (Bt', K1' expand, St', K1' pack, K2' once per frame) and the
+   after (Bt', K1' expand, St'', K1' pack, K2' once per frame) and the
    kernels a frame launches (`kernels_per_frame`, the profile's); a
    per-stage breakdown, each stage's device ms (CUDA events) beside its host
    ms (the host clock from its first launch call to its last call's return)
    (`binning_tables`: Bt' and the read of K, the frame's one host sync;
-   `sort`: St'; `k_read_to_expand_launch_ms`, the host's turnaround from
-   that read's return to the expand's launch); St' (`sort_instances`)
-   `torch.equal` to its twin `sort_instances_torch` on the frame's keys
-   (their largest live key under 2^key_bits and bit 31 clear, checked
-   outside the timed window) and on adversarial keys (all equal, one tile,
-   46-bit keys on 3840x2160's 32,400 tiles, K = 1, 2^22 + 7 random keys),
-   timed beside its bound, its twin, `torch.sort` with the gather
-   (`library_ms`, also `sort_ms`) and `torch.sort` alone; Bt' (`emission_tables`)
+   `sort`: St''; `k_read_to_expand_launch_ms`, the host's turnaround from
+   that read's return to the expand's launch); the sort (`sort_instances`,
+   St'' up to 2^23 keys, St' above) each route forced `torch.equal` to its
+   twin `sort_instances_torch` on the frame's keys (their largest live key
+   under 2^key_bits and bit 31 clear, checked outside the timed window)
+   and on adversarial keys (all equal and one tile, 2^20 keys each: St'''s
+   big route; one tile of CAP - 1, CAP and CAP + 1 keys; a frame with four
+   tiles over CAP; 46-bit keys on 3840x2160's 32,400 tiles, K = 1, 2^22 +
+   7 and 2^23 + 2^20 random keys, the latter the path's St'), St'''s count
+   kernel's tiles over CAP and largest tile those of the keys on every
+   case, timed beside its bound, its twin, both routes in turns,
+   `torch.sort` with the gather (`library_ms`, also `sort_ms`) and
+   `torch.sort` alone, with St'''s parts (count, scatter, segment) and
+   kernels a sort from the profile; Bt' (`emission_tables`)
    `torch.equal` to its twin `_emission_tables_torch` on all six outputs on
    the frame, on the frame projected with tight_cull off and on the edge
    rows of `synthetic.emission_edge_screen` (rect heights 0, 8 and 9, det,
@@ -102,7 +108,7 @@ JSON line per phase:
    `gather_ref_ms`, the card's time for `packets.index_select(0,
    gauss_id)` alone; Bt' also with K read back, and torch's cumsum of the
    tile counts alone); K2' equal to its
-   twin on the whole frame (max abs err 0, n_contrib exact); K1', St' and
+   twin on the whole frame (max abs err 0, n_contrib exact); K1', St'' and
    K2' not under their bounds; the warp cull's
    check on the frame (`cull_stats_torch`: no kept pair outside its box or
    in a skipped warp) and its share of skipped (warp, instance) pairs;
@@ -115,22 +121,22 @@ JSON line per phase:
    walked pairs and culled share);
 13. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
    at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
-   packets (counts read around them), St' bit for bit its twin on that
+   packets (counts read around them), St'' bit for bit its twin on that
    frame's keys and the bf16 pack's row;
 14. the train path at full width: the same scene (noise on features_dc and
    opacity, padded to 2x capacity with dead rows) trained toward the
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
-   just after (the projection forward and backward, Bt', K1', St', K2', K3', K4',
+   just after (the projection forward and backward, Bt', K1', St'', K2', K3', K4',
    the loss forward and backward and Adam once per step; every path below also projects once per frame, step,
    evaluation view, viewer request and mesh rank-step, and launches Bt'
-   and St' once for each K1' expand), the loss falling,
+   and St'' once for each K1' expand), the loss falling,
    no NaN; a stage split (the projection's forward and backward kernels
    apart), the busy share and kernels per step, peak memory; the
    projection kernels on the step's own inputs (2,097,152 rows, half
    dead, the offset, the blend's cotangents) against their twins and
    autograd, and timed; K3', K4', Bt' (the train frame's screen, bit for
-   bit, and its `forward_binning_tables` stage), St' (the step's keys, bit
+   bit, and its `forward_binning_tables` stage), St'' (the step's keys, bit
    for bit its twin and the pack's input, and its `forward_sort` stage), the expand
    (2,097,152 rows, half dead) and the hybrid pack against their twins at
    the train frame's shapes and timed there (K4' also at the live rows'
@@ -297,8 +303,8 @@ JSON line per phase:
    time; K1' its train-frame expand and expand + pack per path; K4' its
    build facts and the subnormal outcomes; every path kernel its device
    time from its path's profile, `profiled_ms`, which no slow host
-   stretches, also not under its bound; Bt' and St' their train-frame
-   time); Bt', St' and K1' to K6' count on the render
+   stretches, also not under its bound; Bt' and St'' their train-frame
+   time); Bt', St'' and K1' to K6' count on the render
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
@@ -383,8 +389,9 @@ def cuda_time(fn, reps):
 
 
 # the port's kernel functions on the paths, as the profiler names them
-# (St''s two kernels, `sort_instances_hist` and `sort_instances_pass`, share
-# the name `sort_instances_`, which sums them)
+# (the sort's kernels, St'''s `sort_instances_count`, `_scatter` and
+# `_segment` and St''s `sort_instances_hist` and `_pass`, share the name
+# `sort_instances_`, which sums them)
 PATH_KERNEL_FUNCS = ("emission_tables_kernel", "expand_instances_kernel", "sort_instances_",
                      "pack_instances_kernel",
                      "blend_fwd_kernel", "blend_bwd_kernel", "reduce_by_gid_kernel",
@@ -484,7 +491,7 @@ def read_counts():
 
 # the kernels each path launches once per frame or step: every path
 # projects (the projection forward, and its backward in training) and bins
-# (Bt', K1''s expand and St', then a pack); serving
+# (Bt', K1''s expand and St'', then a pack); serving
 # packs float32 packets and has no backward; training packs hybrid ones and
 # runs the loss forward and backward and Adam; the OIT paths blend with K5'
 # (and K6') in place of K2' (and K3')
@@ -547,69 +554,133 @@ def gather_ref_ms(packets, gauss_sorted):
     return cuda_time(lambda: packets.index_select(0, gauss_id), 20)
 
 
-# St''s work a key: the key (8 B) and its gid (4 B) read once and written once
+# St'''s work a key: the key (8 B) and its gid (4 B) read once and written once
 SORT_BYTES = 24
 SORT_REPLACES = "gsplat_tpu/ops/binning.py:758 lax.sort (XLA; no Pallas kernel)"
+SORT_PARTS = ("count", "scatter", "segment")
 
 
 def sort_check(what, keys, gid, key_bits):
-    """St' (`sort_instances`) against its twin `sort_instances_torch` on
-    the same keys: both outputs `torch.equal` (dtype and shape included).
-    Returns St''s outputs and the case's counts."""
+    """Both routes of `sort_instances` (St'' and St', each forced) against
+    their twin `sort_instances_torch` on the same keys: both outputs
+    `torch.equal` (dtype and shape included); the tiles over CAP and the
+    largest tile St'''s count kernel found (its big route, chosen on the
+    card) those of the keys (`torch.bincount`). Returns the outputs of the
+    route the path takes (`sort.route`) and the case's counts."""
     from gsplat_tpu_torch.ops import sort as so
+    from gsplat_tpu_torch.scripts.sort_ablate import on_route
 
-    got = so.sort_instances(keys, gid, key_bits)
+    k = int(keys.shape[0])
     want = so.sort_instances_torch(keys, gid, key_bits)
-    for name, a, b in zip(("keys_sorted", "gid_sorted"), got, want):
-        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
-              f"St' {what}: {name} differs from its twin")
-    return got, {"case": what, "instances": int(keys.shape[0]), "key_bits": key_bits,
-                 "passes": so.sort_layout(max(1, keys.shape[0]), key_bits)[1]}
+    case = {"case": what, "instances": k, "key_bits": key_bits, "sort_route": so.route(k)}
+    for name in ("onesweep", "segmented"):
+        with on_route(name):
+            got = so.sort_instances(keys, gid, key_bits)
+        for out, a, b in zip(("keys_sorted", "gid_sorted"), got, want):
+            check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+                  f"sort {what}, route {name}: {out} differs from its twin")
+        if name == so.route(k):
+            path_got = got
+    if k:
+        _, bins, cap, blocks, seg_blocks, warp_cap = so.sort_layout(k, key_bits)
+        counts = torch.bincount((keys >> 32).long())
+        stats = (int((counts > cap).sum()), int(counts.max()))
+        found = so.sort_stats(keys.device)
+        check(found == stats, f"St'' {what}: the count kernel found {found} (tiles over CAP, "
+                              f"largest tile), the keys hold {stats}")
+        case.update(tile_bins=bins, cap=cap, warp_cap=warp_cap, blocks=blocks,
+                    segment_blocks=seg_blocks, tiles_over_cap=stats[0], largest_tile=stats[1])
+    return path_got, case
 
 
 def sort_precondition(what, keys, key_bits):
-    """St''s precondition on K1''s keys, a max over them outside any timed
-    window: bit 31 clear and the live bits under 2^key_bits. Returns the
-    largest live key."""
+    """The sort's precondition on K1''s keys, a max over them outside any
+    timed window: bit 31 clear and the live bits under 2^key_bits. Returns
+    the largest live key."""
     from gsplat_tpu_torch.ops import sort as so
 
     if keys.numel() == 0:
         return 0
     top = int(so.live_bits(keys).max())
     check(not bool((keys & (1 << 31)).any()) and top < 2**key_bits,
-          f"St' {what}: keys outside 2^{key_bits} (largest live key {top}) or bit 31 set")
+          f"sort {what}: keys outside 2^{key_bits} (largest live key {top}) or bit 31 set")
     return top
 
 
+def sort_parts_ms(fn, calls=20):
+    """Device ms a call of each of St'''s kernels and of all the kernels
+    `fn` launches, and the kernels a call, over `calls` profiled calls."""
+    from torch.autograd import DeviceType
+
+    from gsplat_tpu_torch.profiling import profile_calls
+
+    fn()
+    prof = profile_calls(fn, calls)
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"all": sum(ms for _, ms, _ in rows), "kernels_per_call": sum(c for _, _, c in rows),
+            **{part: sum(ms for k, ms, _ in rows if f"sort_instances_{part}" in k)
+               for part in SORT_PARTS}}
+
+
 def sort_row(keys, gid, key_bits):
-    """St''s numbers on a frame's keys: `ms` over 20 back-to-back calls
-    (CUDA events), its twin's, the library route it replaced
-    (`torch.sort(keys, stable=True)` and the gather of the gids, the same
-    function) and `torch.sort` alone, beside the bound (24 B a key)."""
+    """The sort's numbers on a frame's keys: `ms` of the route the path
+    takes over 20 back-to-back calls (CUDA events) and from the profile;
+    each route forced on the same keys in turns (St', St'', St'', St'),
+    St'''s parts from the profile (count, scatter, segment; the big route
+    runs inside the segment kernel) and the kernels a sort the profile
+    saw; the twin's time; the library route (`torch.sort(keys,
+    stable=True)` and the gather of the gids, the same function) and
+    `torch.sort` alone; beside the bound (24 B a key)."""
     from gsplat_tpu_torch.ops import sort as so
+    from gsplat_tpu_torch.scripts.sort_ablate import on_route
 
     def library():
         keys_sorted, perm = torch.sort(keys, stable=True)
         return keys_sorted, gid[perm]
 
+    def on(name):
+        def fn():
+            with on_route(name):
+                return so.sort_instances(keys, gid, key_bits)
+        return fn
+
     k = int(keys.shape[0])
+    turns = {"onesweep": [], "segmented": []}
+    for name in ("onesweep", "segmented", "segmented", "onesweep"):
+        turns[name].append(cuda_time(on(name), 20))
+    parts = {name: sort_parts_ms(on(name)) for name in turns}
     ms = cuda_time(lambda: so.sort_instances(keys, gid, key_bits), 20)
     bnd = bound(SORT_BYTES * k)
-    check(ms >= bnd[0], f"St' ran in {ms} ms, under its bound {bnd[0]}")
-    _, passes, digit_bits, tile = so.sort_layout(k, key_bits)
+    check(min(ms, *turns["onesweep"], *turns["segmented"]) >= bnd[0],
+          f"the sort ran under its bound {bnd[0]}: {ms} ms, {turns}")
+    _, bins, cap, blocks, seg_blocks, warp_cap = so.sort_layout(k, key_bits)
     return measured(ms, cuda_time(lambda: so.sort_instances_torch(keys, gid, key_bits), 20), bnd,
                     0.0, 0.0, library_ms=cuda_time(library, 20),
                     torch_sort_alone_ms=cuda_time(lambda: torch.sort(keys, stable=True), 20),
-                    instances=k, key_bits=key_bits, passes=passes, digit_bits=digit_bits,
-                    tile=tile)
+                    sort_route=so.route(k), profiled_ms=parts[so.route(k)]["all"],
+                    segmented_ms=statistics.mean(turns["segmented"]),
+                    onesweep_ms=statistics.mean(turns["onesweep"]), ms_turns=turns,
+                    parts_ms={p: parts["segmented"][p] for p in SORT_PARTS},
+                    profiled_ms_by_route={n: parts[n]["all"] for n in parts},
+                    profiled_kernels_per_sort={n: parts[n]["kernels_per_call"] for n in parts},
+                    instances=k, key_bits=key_bits, tile_bins=bins, cap=cap,
+                    warp_cap=warp_cap, blocks=blocks, segment_blocks=seg_blocks)
 
 
 def sort_edges(device):
-    """St' bit for bit its twin on adversarial keys (K1''s layout, depths
-    above 0.2 with ties and +inf): all keys equal, one tile, 46-bit keys on
-    3840x2160's 32,400 tiles, K = 1, and K = 2^22 + 7 random keys on
-    1080p's 8,160 tiles."""
+    """Both routes bit for bit their twin on adversarial keys (K1''s layout,
+    depths above 0.2 with ties and +inf, random-permutation gids): all 2^20
+    keys equal, and 2^20 keys in one tile (St'''s big route: 512 runs of
+    CAP merged); one tile of CAP - 1, CAP and CAP + 1 keys among 2^16 keys
+    on 1080p's 8,160 tiles; a frame of 2^20 keys on those tiles with four
+    tiles over CAP (CAP + 1 to 2^17 keys) among them; 46-bit keys on
+    3840x2160's 32,400 tiles; K = 1; K = 2^22 + 7 random keys on 1080p's
+    tiles; and 2^23 + 2^20 of them, past ONESWEEP_MIN_KEYS (the path takes
+    St'). St'''s segment kernel's device ms (with the big route) on the
+    frame with tiles over CAP, beside the same frame without them."""
     from gsplat_tpu_torch.ops import sort as so
+    from gsplat_tpu_torch.scripts.sort_ablate import on_route
 
     rng = np.random.default_rng(19)
 
@@ -623,13 +694,30 @@ def sort_edges(device):
         d[rng.random(n) < 0.01] = np.inf
         return d
 
-    n, big = 1 << 20, (1 << 22) + 7
+    def frame_with(sizes, n):
+        """n keys on random tiles of 8,160 (none on tiles 100, 4000, 8159
+        and 6000), then those tiles with `sizes` keys each, the slots
+        shuffled."""
+        ids = np.array([100, 4000, 8159, 6000])
+        tiles = rng.integers(0, 8160, n)
+        tiles[np.isin(tiles, ids)] -= 1
+        tiles = np.concatenate([tiles, np.repeat(ids[:len(sizes)], sizes)])
+        tiles = tiles[rng.permutation(tiles.size)]
+        return keys_of(tiles, depths(tiles.size))
+
+    cap = so.sort_layout(1, 44).cap
+    n, big, past = 1 << 20, (1 << 22) + 7, (1 << 23) + (1 << 20)
+    over = [9_000, 20_000, 1 << 17, cap + 1]
     cases = (("all_equal", keys_of(np.full(n, 4000), np.full(n, 3.5)), 44),
              ("one_tile", keys_of(np.full(n, 4321), depths(n)), 44),
+             *((f"tile_at_cap{d:+d}", frame_with([cap + d], 1 << 16), 44) for d in (-1, 0, 1)),
+             ("frame_tiles_over_cap", frame_with(over, n), 44),
              ("46_bit_3840x2160", keys_of(rng.integers(0, 32_400, 3 * n), depths(3 * n)),
               so.sort_key_bits(32_400)),
              ("k_1", keys_of(np.array([8159]), np.array([0.3])), 44),
              ("random_2^22+7", keys_of(rng.integers(0, 8160, big), depths(big)),
+              so.sort_key_bits(8160)),
+             ("random_2^23+2^20", keys_of(rng.integers(0, 8160, past), depths(past)),
               so.sort_key_bits(8160)))
     out = []
     for name, keys, bits in cases:
@@ -637,10 +725,28 @@ def sort_edges(device):
         top = sort_precondition(name, keys, bits)
         (_, gid_sorted), case = sort_check(name, keys, gid, bits)
         if name == "all_equal":
-            check(torch.equal(gid_sorted, gid), "St' all_equal: slot order not kept")
+            check(torch.equal(gid_sorted, gid), "sort all_equal: slot order not kept")
+        if name == "frame_tiles_over_cap":
+            plain = frame_with([], n)
+            pgid = torch.as_tensor(rng.permutation(n).astype(np.int32), device=device)
+            with on_route("segmented"):
+                case["segment_ms"] = sort_parts_ms(
+                    lambda: so.sort_instances(keys, gid, bits))["segment"]
+                case["segment_ms_without_tiles_over_cap"] = sort_parts_ms(
+                    lambda: so.sort_instances(plain, pgid, bits))["segment"]
         out.append({**case, "largest_live_key": top})
-    check(out[2]["key_bits"] == 46 and out[2]["largest_live_key"] >= 2**45,
-          "St' 46-bit case holds no 46-bit key")
+    by = {c["case"]: c for c in out}
+    check(by["46_bit_3840x2160"]["key_bits"] == 46
+          and by["46_bit_3840x2160"]["largest_live_key"] >= 2**45,
+          "sort 46-bit case holds no 46-bit key")
+    check([by[f"tile_at_cap{d:+d}"]["tiles_over_cap"] for d in (-1, 0, 1)] == [0, 0, 1]
+          and by["frame_tiles_over_cap"]["tiles_over_cap"] == len(over)
+          and by["all_equal"]["tiles_over_cap"] == 1 and by["one_tile"]["tiles_over_cap"] == 1,
+          "St'': the cases over and under CAP do not hold the tiles they should")
+    check(by["random_2^22+7"]["sort_route"] == "segmented"
+          and by["random_2^23+2^20"]["sort_route"] == "onesweep",
+          f"sort routes: {by['random_2^22+7']['sort_route']}, "
+          f"{by['random_2^23+2^20']['sort_route']}")
     return out
 
 
@@ -824,7 +930,7 @@ def straddled_steps(cum_excl, count, gid):
 
 def phase_k1_edges(device):
     """K1' on adversarial emission tables, bit for bit against its twins:
-    expand (keys, gids, live packet rows), St' on its keys, then the pack
+    expand (keys, gids, live packet rows), St'' on its keys, then the pack
     in all three packet modes, on a 1080p tile grid. Cases: one gaussian on all 8,160
     tiles; runs that straddle the 256-slot steps of the expand's walk
     (rects up to 40 x 20); whole blocks of dead rows and a last block of one
@@ -1146,7 +1252,7 @@ def phase_bf16(device):
     """All-bf16 packets: K1''s bf16 pack bitwise against its twin on the
     640x480 scene (tight_cull on and off), then the full-width sorted render
     with bf16 packets through `render` (counts reset just before, read just
-    after), St' bit for bit its twin on that frame's keys and the bf16
+    after), St'' bit for bit its twin on that frame's keys and the bf16
     pack's row at that frame's shapes."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
@@ -1704,7 +1810,7 @@ def phase_main_path(device):
     k = tables[5]
     n = params.xyz.shape[0]
 
-    # --- St' against its twin bit for bit on the frame's keys (the keys'
+    # --- St'' against its twin bit for bit on the frame's keys (the keys'
     # largest live bit checked first, outside the timed window) and on
     # adversarial keys; its row on the frame
     largest_key = sort_precondition("render frame", keys, key_bits)
@@ -1794,7 +1900,7 @@ def phase_main_path(device):
         "k_read_to_expand_launch_ms_median": statistics.median(turnaround_ms),
         "k_read_to_expand_launch_ms": turnaround_ms,
         "emission_tables_cases": bt_cases, "sort_instances_cases": sort_cases,
-        # the library route St' replaced: torch.sort and the gather of the gids
+        # the library route St'' replaced: torch.sort and the gather of the gids
         "sort_ms": sort_measure["library_ms"], "launches": launches,
         "blend_full_frame_max_abs_err": blend_err,
         "peak_mem_gib": peak_gib,
@@ -2168,7 +2274,7 @@ def phase_train(device, blend_mode="sorted"):
                         (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
                         (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
     # `forward` holds `forward_projection`, `forward_binning_tables` (Bt'
-    # and the read of K) and `forward_sort` (St'), `loss` holds `loss_kernel` and
+    # and the read of K) and `forward_sort` (St''), `loss` holds `loss_kernel` and
     # `loss_backward` holds `loss_backward_kernel`; what the projection
     # backward's kernel takes (`projection_backward`) is split from the
     # autograd steps before it and the statistics after it (until Adam);
@@ -2241,7 +2347,7 @@ def kernel_rows_projection_train(pf_args, pb_args):
 
 
 def kernel_rows_train(k3_args, k4_args, pack_args, exp_args, sort_args):
-    """K3', K4', Bt', St' and the hybrid K1' pack and expand on the inputs
+    """K3', K4', Bt', St'' and the hybrid K1' pack and expand on the inputs
     one train step gave them: time, plain twin time, error and bound."""
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
@@ -2330,17 +2436,17 @@ def kernel_rows_train(k3_args, k4_args, pack_args, exp_args, sort_args):
           f"K1' under its bound on the train frame: expand {exp_ms} / {exp_bound[0]}, "
           f"pack {pack_ms} / {pack_bound[0]}")
 
-    # St' on the train frame's keys: bit for bit its twin, and its output
+    # St'' on the train frame's keys: bit for bit its twin, and its output
     # the one the step packed; timed
     keys, kgid, key_bits = sort_args
     top = sort_precondition("train frame", keys, key_bits)
     (st_keys, st_gid), st_case = sort_check("train frame", keys, kgid, key_bits)
     check(torch.equal(st_keys, keys_sorted) and torch.equal(st_gid, gauss_sorted),
-          "St' on the train frame differs from what the step packed")
+          "St'' on the train frame differs from what the step packed")
     st_row = {**sort_row(keys, kgid, key_bits), **st_case, "largest_live_key": top}
 
     return {
-        # Bt' and St' on the train frame (their rows are the render frame's)
+        # Bt' and St'' on the train frame (their rows are the render frame's)
         "emission_tables_train_frame": bt_row,
         "sort_instances_train_frame": st_row,
         "pack_instances_hybrid": measured(pack_ms, pack_plain_ms, pack_bound, pack_err, pack_err,
@@ -2813,6 +2919,7 @@ def phase_colmap_train(device):
     from gsplat_tpu_torch.cli import render as render_cli
     from gsplat_tpu_torch.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                                          save_cfg_args)
+    from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.train import loop
 
     iters = COLMAP["iterations"]
@@ -2874,6 +2981,11 @@ def phase_colmap_train(device):
               f"the loop read {len(scene.get_train_cameras())} views and "
               f"{scene.info.points.shape[0]} init points")
         n_alive = int(state.alive.sum())
+        # the last step's sort: its route, and under St'' its tiles over CAP
+        # (the big route) and its largest tile, as its count kernel found them
+        sort_last_step = {"sort_route": so.sort_instances.last_route}
+        if sort_last_step["sort_route"] == "segmented":
+            sort_last_step.update(zip(("tiles_over_cap", "largest_tile"), so.sort_stats(device)))
         check(resizes and resizes[0]["to"] > resizes[0]["from"] == COLMAP_INIT_ROWS,
               f"the gaussian capacity never grew from {COLMAP_INIT_ROWS}: {resizes}, "
               f"capacity and alive at the densify rounds {trajectory}")
@@ -2914,6 +3026,7 @@ def phase_colmap_train(device):
         "step_ms_median_after_last_grow": statistics.median(after),
         "steps_before_first_grow": len(before), "steps_after_last_grow": len(after),
         "resizes": resizes, "trajectory": trajectory, "alive_end": n_alive,
+        "sort_last_step": sort_last_step,
         "loss": loss, "peak_mem_gib": peak_gib, "launches": launches,
         "render_cli_launches": render_launches, "render_cli_psnr_vs_gt": psnr,
     }
@@ -3013,7 +3126,7 @@ class Swaps:
 
 def eval_counts(iterations, renders):
     """Launches of a training run with `renders` evaluation renders: the
-    projection forward, Bt', K1' (expand, hybrid pack), St' and K2' per
+    projection forward, Bt', K1' (expand, hybrid pack), St'' and K2' per
     iteration and per render, K3', K4', the projection backward, the loss
     forward and backward and Adam per iteration."""
     return {"project_fwd": iterations + renders, "emission_tables": iterations + renders,
@@ -4155,19 +4268,23 @@ def sass_k1_k4():
 
 
 def sass_sort():
-    """St''s kernels as built, the histogram and the pass kernel of each
-    digit position (`sort_instances_pass<P>`): registers, stack, shared and
-    local memory (`cuobjdump -res-usage`) and the local loads and stores in
-    their SASS. A spill is recorded, not refused."""
-    ops, use = sass_counts("sort"), res_usage("sort")
+    """The sort's kernels as built: St'' (`sort_instances_count`,
+    `_scatter`, `_segment`) and St' (`sort_instances_hist` and the pass
+    kernel of each digit position, `sort_instances_pass<P>`): registers,
+    stack, shared and local memory (`cuobjdump -res-usage`) and the local
+    loads and stores in their SASS. A spill is recorded, not refused."""
     out = {}
-    for f, u in use.items():
-        m = re.search(r"sort_instances_(hist|pass)(?:ILi(\d+)E)?", f)
-        if m:
-            o = ops.get(f, {})
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-            out[name] = {**u, "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
-    check("hist" in out and "pass<0>" in out, f"St': kernels found {sorted(out)}")
+    for lib, pattern in (("sort", r"sort_instances_(count|scatter|segment)"),
+                         ("sort_onesweep", r"sort_instances_(hist|pass)(?:ILi(\d+)E)?")):
+        ops, use = sass_counts(lib), res_usage(lib)
+        for f, u in use.items():
+            m = re.search(pattern, f)
+            if m:
+                o = ops.get(f, {})
+                name = m.group(1) + (f"<{m.group(2)}>" if m.lastindex == 2 and m.group(2) else "")
+                out[name] = {**u, "LDL": o.get("LDL", 0), "STL": o.get("STL", 0)}
+    check({"count", "scatter", "segment", "hist", "pass<0>"} <= set(out),
+          f"sort: kernels found {sorted(out)}")
     return out
 
 
@@ -4573,7 +4690,7 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
 def attach_profiled(measures, profiles):
     """Each path kernel's device time from its path's profile beside its
     timed loop (`ms`, CUDA events around back-to-back wrapper calls, which
-    a slow host can stretch); neither may be under the bound. Bt', St' and
+    a slow host can stretch); neither may be under the bound. Bt', St'' and
     K1''s expand also get their train-frame time, K1' expand + pack per
     path."""
     for row, path, func in PROFILED_ROWS:
@@ -4600,8 +4717,10 @@ def kernels_line(measures, launches_by_path):
     rows = []
     for name, path, source, replaces in KERNEL_ROWS:
         by_path = {p: counts[name] for p, counts in launches_by_path.items()}
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": by_path[path], "launches_by_path": by_path, **measures[name]})
+        # the contract's keys last: no measured field may take their place
+        rows.append({**measures[name], "name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": by_path[path],
+                     "launches_by_path": by_path})
     return rows
 
 

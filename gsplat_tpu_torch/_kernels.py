@@ -32,8 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binning", "sort", "rasterize_fwd", "rasterize_bwd", "reduce", "rasterize_oit",
-           "probe_skeleton", "probe_ops", "projection", "adam", "loss")
+SOURCES = ("binning", "sort", "sort_onesweep", "rasterize_fwd", "rasterize_bwd", "reduce",
+           "rasterize_oit", "probe_skeleton", "probe_ops", "projection", "adam", "loss")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +52,10 @@ _SIGNATURES = {
         "gs_pack_instances": (_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P),
     },
     "sort": {
+        "gs_sort_layout": (_LL, _I, _P),
+        "gs_sort_instances": (_P, _P, _LL, _I, _P, _P, _P, _P, _LL, _P),
+    },
+    "sort_onesweep": {
         "gs_sort_layout": (_LL, _I, _P),
         "gs_sort_instances": (_P, _P, _LL, _I, _P, _P, _P, _P, _P, _LL, _LL, _P),
     },

@@ -8,7 +8,7 @@ ranges and the (16, K) float32 instance table.
 On a CUDA tensor it runs kernel Bt' (`emission_tables`, `csrc/binning.cu`)
 for the emission tables, then kernel K1' (replacing the Pallas
 `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two launches around
-kernel St', the sort (`ops/sort.py`, `csrc/sort.cu`):
+kernel St'', the sort (`ops/sort.py`, `csrc/sort.cu`):
 
 - `emission_tables`: per gaussian, the tight-cull row runs of
   `compute_row_runs` (`t_lo`, `cum_run`, the trimmed flag, `tiles_post`),
@@ -23,8 +23,9 @@ kernel St', the sort (`ops/sort.py`, `csrc/sort.cu`):
   JAX package's rect decode or, under `tight_cull`, its run-trimmed decode
   (`RUN_HMAX` = 8). Each slot gets the int64 key `(tile << 32) | depth_bits`
   and its gaussian id. Slots go out in gid order, so a stable sort on the
-  key gives the JAX total order (tile, depth bits, gid): St' sorts the
-  key's live bits (`sort.sort_key_bits`) and carries the gid. The same
+  key gives the JAX total order (tile, depth bits, gid): St'' buckets
+  the keys by tile, sorts each tile's (depth bits, slot) and gathers the
+  gid (`ops/sort.py`). The same
   launch writes one (12,) float32 packet row per live gaussian: the ten table
   columns (conic pre-folded to [-a/2, -b, -c/2], invz = 1/max(depth, 0.2)),
   unrounded, and two zeros; rows of dead gaussians are left unwritten.
@@ -46,7 +47,7 @@ so the blends compute exactly what the JAX kernels compute after
 performance work.
 
 The JAX package leaves the sort to XLA (`lax.sort`, `binning.py:758`);
-the port sorts with St' on the card. On a CPU tensor, `pack_bins` runs the
+the port sorts with St'' on the card. On a CPU tensor, `pack_bins` runs the
 plain twin `pack_bins_torch`, which computes the same function with tensor
 ops (`compute_row_runs` and `torch.cumsum` for the tables, `torch.sort`
 and a gather for the sort).
@@ -627,7 +628,7 @@ def pack_bins(
 
     Same instance order as `bin_gaussians`: (tile, depth bits, gaussian id).
     On a CUDA tensor through kernels Bt' (`emission_tables`), K1'
-    (`expand_instances`, `pack_instances`) and St' (`sort_instances`); on a
+    (`expand_instances`, `pack_instances`) and St'' (`sort_instances`); on a
     CPU tensor through `pack_bins_torch`.
     Non-differentiable structure: the screen quantities are detached, as
     `binning.py:657` stops their gradients.
