@@ -87,13 +87,16 @@ JSON line per phase:
    (`binning_tables`: Bt' and the read of K, the frame's one host sync;
    `sort`: St''; `k_read_to_expand_launch_ms`, the host's turnaround from
    that read's return to the expand's launch); the sort (`sort_instances`,
-   St'' up to 2^23 keys, St' above) each route forced `torch.equal` to its
+   St'' up to 2^23 keys of up to 46 bits, St' for more or wider ones) each
+   route forced (St'' only on keys of up to 46 bits) `torch.equal` to its
    twin `sort_instances_torch` on the frame's keys (their largest live key
    under 2^key_bits and bit 31 clear, checked outside the timed window)
    and on adversarial keys (all equal and one tile, 2^20 keys each: St'''s
    big route; one tile of CAP - 1, CAP and CAP + 1 keys; a frame with four
-   tiles over CAP; 46-bit keys on 3840x2160's 32,400 tiles, K = 1, 2^22 +
-   7 and 2^23 + 2^20 random keys, the latter the path's St'), St'''s count
+   tiles over CAP; 46-bit keys on 3840x2160's 32,400 tiles; 47-bit keys on
+   4096x2160's 34,560 tiles, 3 x 2^20 of them, and 62-bit keys, 2^20, both
+   the path's St' whatever K; K = 1, 2^22 + 7 and 2^23 + 2^20 random keys,
+   the latter the path's St'), St'''s count
    kernel's tiles over CAP and largest tile those of the keys on every
    case, timed beside its bound, its twin, both routes in turns,
    `torch.sort` with the gather (`library_ms`, also `sort_ms`) and
@@ -106,12 +109,21 @@ JSON line per phase:
    inf in mean2d and conic) with tight_cull on and off; each kernel's time
    against its plain twin, its bound and its error (the packs also
    `gather_ref_ms`, the card's time for `packets.index_select(0,
-   gauss_id)` alone; Bt' also with K read back, and torch's cumsum of the
-   tile counts alone); K2' equal to its
+   gauss_id)` alone; Bt' also queued behind a hold of the stream
+   (`ms_queued`: a slow host does not stretch it), with K read back,
+   torch's cumsum of the tile counts alone, its launch as built and its
+   device ms a launch from a profile); K2' equal to its
    twin on the whole frame (max abs err 0, n_contrib exact); K1', St'' and
    K2' not under their bounds; the warp cull's
    check on the frame (`cull_stats_torch`: no kept pair outside its box or
    in a skipped warp) and its share of skipped (warp, instance) pairs;
+   then (`wide_render_path`) the same scene at 4096x2160 (34,560 tiles,
+   more than St'''s 2^15 tile counters: the sort takes St'), 1 + 5 frames
+   through `render` with the counts reset just before and read just after
+   (each render kernel once a frame), its image and instance count equal
+   exactly to the same frame through the plain route on the card
+   (`pack_bins_torch`, `blend_packed_torch`), with its frame ms, instances
+   and the sort's route;
 11. the render CLI on a seeded 3-view Blender-format scene and PLY snapshot;
 12. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
@@ -359,6 +371,11 @@ BF16_ULPS = 2  # bf16 P4' against its twin, per element
 DEVICE = "cuda"
 SCENE = dict(n=65_536, width=640, height=480, sh_degree=3)
 FULL = dict(n=1_048_576, width=1920, height=1080, sh_degree=3)
+# the flagship scene at 4096x2160: 256 x 135 = 34,560 tiles, more than
+# St'''s 2^15 tile counters (key_bits 47), so the sort takes St'
+WIDE = dict(FULL, width=4096, height=2160)
+WIDE_TILES = 256 * 135
+WIDE_TIMED = 5
 CLI = dict(size=800, n=200_000)
 WARMUP, TIMED = 5, 20
 CHECK_TILES = 64
@@ -386,6 +403,31 @@ def cuda_time(fn, reps):
     from gsplat_tpu_torch.probes import time_ms
 
     return time_ms(fn, reps, torch.device(DEVICE))
+
+
+HOLD_CYCLES = 50_000_000  # ~25 ms of the card's clock: the hold before queued calls
+
+
+def queued_ms(fn, reps):
+    """Mean device ms of `fn()` over `reps` calls queued behind a hold of
+    the stream (`torch.cuda._sleep`), CUDA events around the calls: the
+    card runs them back to back, so a host slower than the kernel does not
+    stretch the time as it does `cuda_time`'s. Also whether the host had
+    queued them all before the hold ended (else the time is the host's
+    too)."""
+    fn()
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    held.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms < held.elapsed_time(start)
 
 
 # the port's kernel functions on the paths, as the profiler names them
@@ -565,23 +607,29 @@ def sort_check(what, keys, gid, key_bits):
     their twin `sort_instances_torch` on the same keys: both outputs
     `torch.equal` (dtype and shape included); the tiles over CAP and the
     largest tile St'''s count kernel found (its big route, chosen on the
-    card) those of the keys (`torch.bincount`). Returns the outputs of the
-    route the path takes (`sort.route`) and the case's counts."""
+    card) those of the keys (`torch.bincount`). St'' is forced only on keys
+    of up to SEGMENTED_MAX_KEY_BITS; wider ones take St' whatever K.
+    Returns the outputs of the route the path takes (`sort.route`) and the
+    case's counts."""
     from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.scripts.sort_ablate import on_route
 
     k = int(keys.shape[0])
     want = so.sort_instances_torch(keys, gid, key_bits)
-    case = {"case": what, "instances": k, "key_bits": key_bits, "sort_route": so.route(k)}
-    for name in ("onesweep", "segmented"):
+    taken = so.route(k, key_bits)
+    case = {"case": what, "instances": k, "key_bits": key_bits, "sort_route": taken}
+    segmented = key_bits <= so.SEGMENTED_MAX_KEY_BITS
+    for name in ("onesweep", "segmented") if segmented else ("onesweep",):
         with on_route(name):
             got = so.sort_instances(keys, gid, key_bits)
+        check(so.sort_instances.last_route == name,
+              f"sort {what}: forced onto {name}, took {so.sort_instances.last_route}")
         for out, a, b in zip(("keys_sorted", "gid_sorted"), got, want):
             check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
                   f"sort {what}, route {name}: {out} differs from its twin")
-        if name == so.route(k):
+        if name == taken:
             path_got = got
-    if k:
+    if k and segmented:
         _, bins, cap, blocks, seg_blocks, warp_cap = so.sort_layout(k, key_bits)
         counts = torch.bincount((keys >> 32).long())
         stats = (int((counts > cap).sum()), int(counts.max()))
@@ -658,7 +706,8 @@ def sort_row(keys, gid, key_bits):
     return measured(ms, cuda_time(lambda: so.sort_instances_torch(keys, gid, key_bits), 20), bnd,
                     0.0, 0.0, library_ms=cuda_time(library, 20),
                     torch_sort_alone_ms=cuda_time(lambda: torch.sort(keys, stable=True), 20),
-                    sort_route=so.route(k), profiled_ms=parts[so.route(k)]["all"],
+                    sort_route=so.route(k, key_bits),
+                    profiled_ms=parts[so.route(k, key_bits)]["all"],
                     segmented_ms=statistics.mean(turns["segmented"]),
                     onesweep_ms=statistics.mean(turns["onesweep"]), ms_turns=turns,
                     parts_ms={p: parts["segmented"][p] for p in SORT_PARTS},
@@ -677,8 +726,12 @@ def sort_edges(device):
     tiles over CAP (CAP + 1 to 2^17 keys) among them; 46-bit keys on
     3840x2160's 32,400 tiles; K = 1; K = 2^22 + 7 random keys on 1080p's
     tiles; and 2^23 + 2^20 of them, past ONESWEEP_MIN_KEYS (the path takes
-    St'). St'''s segment kernel's device ms (with the big route) on the
-    frame with tiles over CAP, beside the same frame without them."""
+    St'). Keys too wide for St'''s tile counters take St' at any K: 47-bit
+    keys on 4096x2160's 34,560 tiles (3 x 2^20 of them, under
+    ONESWEEP_MIN_KEYS) and 62-bit keys on tile ids up to 2^31 - 1 (2^20);
+    St'' is not forced on them. St'''s segment kernel's device ms (with the
+    big route) on the frame with tiles over CAP, beside the same frame
+    without them."""
     from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.scripts.sort_ablate import on_route
 
@@ -714,6 +767,10 @@ def sort_edges(device):
              ("frame_tiles_over_cap", frame_with(over, n), 44),
              ("46_bit_3840x2160", keys_of(rng.integers(0, 32_400, 3 * n), depths(3 * n)),
               so.sort_key_bits(32_400)),
+             ("47_bit_4096x2160", keys_of(rng.integers(0, WIDE_TILES, 3 * n), depths(3 * n)),
+              so.sort_key_bits(WIDE_TILES)),
+             ("62_bit", keys_of(np.append(rng.integers(0, 2**31, n - 1), 2**31 - 1), depths(n)),
+              62),
              ("k_1", keys_of(np.array([8159]), np.array([0.3])), 44),
              ("random_2^22+7", keys_of(rng.integers(0, 8160, big), depths(big)),
               so.sort_key_bits(8160)),
@@ -736,9 +793,13 @@ def sort_edges(device):
                     lambda: so.sort_instances(plain, pgid, bits))["segment"]
         out.append({**case, "largest_live_key": top})
     by = {c["case"]: c for c in out}
-    check(by["46_bit_3840x2160"]["key_bits"] == 46
-          and by["46_bit_3840x2160"]["largest_live_key"] >= 2**45,
-          "sort 46-bit case holds no 46-bit key")
+    for name, bits in (("46_bit_3840x2160", 46), ("47_bit_4096x2160", 47), ("62_bit", 62)):
+        check(by[name]["key_bits"] == bits and by[name]["largest_live_key"] >= 2**(bits - 1),
+              f"sort {name}: holds no {bits}-bit key")
+    check(by["47_bit_4096x2160"]["instances"] <= so.ONESWEEP_MIN_KEYS
+          and by["47_bit_4096x2160"]["sort_route"] == "onesweep"
+          and by["62_bit"]["sort_route"] == "onesweep",
+          "sort: keys wider than St'''s tile counters do not take St'")
     check([by[f"tile_at_cap{d:+d}"]["tiles_over_cap"] for d in (-1, 0, 1)] == [0, 0, 1]
           and by["frame_tiles_over_cap"]["tiles_over_cap"] == len(over)
           and by["all_equal"]["tiles_over_cap"] == 1 and by["one_tile"]["tiles_over_cap"] == 1,
@@ -779,13 +840,19 @@ def expand_errors(what, got, want, rect):
                         (want[0], want[1], want[2][live]))
 
 
-# Bt''s bytes a row: rect_min 8, rect_max 8, conic 12, mean2d 8, cull_qmax
-# 4 and tiles_touched 4 in (without the tight cull rect_min, rect_max and
+# Bt''s bytes a row, each input read once and each output written once:
+# rect_min 8, rect_max 8, conic 12, mean2d 8, cull_qmax 4 and
+# tiles_touched 4 in (without the tight cull rect_min, rect_max and
 # tiles_touched alone); rect 16, trimmed 1, t_lo 32, cum_run 32 and
-# cum_excl 8 out. Its float32 operations a row under the tight cull, an
-# IEEE division or square root one each: 18 for the conic and 54 for each
-# of the eight rect rows (both run ends 28, the band and its clamp 11, the
-# run's columns 10, its prefix 2, the casts 3)
+# cum_excl 8 out. The design's own traffic is not the function's and is
+# left out: its block sums (8 bytes a block, written and read back). Its
+# float32 operations a row under the tight cull, an IEEE division or
+# square root one each: 18 for the conic
+# and 54 for each of the eight rect rows (both run ends 28, the band and
+# its clamp 11, the run's columns 10, its prefix 2, the casts 3). A rect
+# row outside the rect or the ellipse needs no run ends, so this is the
+# most a row needs; the bytes bound it all the same (0.042 ms against
+# 0.007 of operations on the flagship render frame).
 TABLE_BYTES_IN = {True: 44, False: 20}
 TABLE_BYTES_OUT = 89
 TABLE_OPS = {True: 18 + 8 * 54, False: 0}
@@ -816,19 +883,41 @@ def tables_check(what, screen, tight):
 
 def tables_row(what, screen, tight, tables):
     """Bt''s numbers on `screen`: `ms` over 20 back-to-back launches with K
-    left on the card (CUDA events; a slow host stretches them), beside the
-    same with K read back each time, the twin's, the bound and a yardstick
-    (`cumsum_ref_ms`: torch's cumsum of the tile counts alone)."""
+    left on the card (CUDA events; a slow host stretches them), `ms_queued`
+    over 20 launches queued behind a hold (`queued_ms`: the card's time
+    alone), beside the same with K read back each time, the twin's, the
+    bound and a yardstick
+    (`cumsum_ref_ms`: torch's cumsum of the tile counts alone); its launch
+    as built (blocks, rows a block a round, rounds) and its device ms a
+    launch from a profile of 20 calls."""
+    from torch.autograd import DeviceType
+
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.profiling import profile_calls
 
     n = tables[0].shape[0]
-    ms = cuda_time(lambda: tb.emission_tables(screen, 16, tight, read_total=False), 20)
+
+    def once():
+        return tb.emission_tables(screen, 16, tight, read_total=False)
+
+    ms = cuda_time(once, 20)
     bnd = tables_bound(n, tight)
-    check(ms >= bnd[0], f"Bt' on the {what} ran in {ms} ms, under its bound {bnd[0]}")
+    queued, behind_hold = queued_ms(once, 20)
+    check(min(ms, queued) >= bnd[0],
+          f"Bt' on the {what} ran in {ms} ms ({queued} queued), under its bound {bnd[0]}")
+    # (the profiler may drop a call's events: its count is reported)
+    prof = [e for e in profile_calls(once, 20).key_averages()
+            if e.device_type == DeviceType.CUDA and "emission_" in e.key]
+    blocks, chunk, rounds, _ = tb.table_layout(n)
     counts = tables[0][:, 3].to(torch.int64)
     return measured(ms, cuda_time(lambda: tb._emission_tables_torch(screen, 16, tight), 3), bnd,
                     0.0, 0.0, rows=n, tight_cull=tight, ms_with_k_read=cuda_time(
                         lambda: tb.emission_tables(screen, 16, tight), 20),
+                    ms_queued=queued, ms_queued_behind_hold=behind_hold,
+                    own_profiled_ms=sum(e.self_device_time_total for e in prof)
+                    / max(1, sum(e.count for e in prof)) / 1e3,
+                    profiled_kernels_in_20_calls=sum(e.count for e in prof),
+                    blocks=blocks, rows_per_block=chunk, rounds=rounds,
                     cumsum_ref_ms=cuda_time(lambda: torch.cumsum(counts, 0), 20))
 
 
@@ -1906,6 +1995,66 @@ def phase_main_path(device):
         "peak_mem_gib": peak_gib,
     }
     return summary, rows
+
+
+def phase_wide_render(device):
+    """The flagship scene rendered through `render` at 4096x2160 (WIDE:
+    34,560 tiles, key_bits 47, so the sort takes St' whatever K), the
+    counts reset just before and read just after (each render kernel once
+    a frame), against the same frame through the plain route on the card:
+    the kernel projection's screen (the projection is held to its twin in
+    its own phase) binned by `pack_bins_torch` (the twins of Bt', K1' and
+    the sort: `torch.sort` and a gather) and blended by
+    `blend_packed_torch`, composed as `render` composes. Tolerance: the
+    image and the instance count equal exactly (K2' has max abs err 0 on
+    the render frame). Returns the frame's numbers and the counts."""
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import rasterize_cuda as rc
+    from gsplat_tpu_torch.ops import sort as so
+    from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
+    from gsplat_tpu_torch.render import grid_dims, render
+    from gsplat_tpu_torch.synthetic import tiny_scene
+
+    params, alive, camera = tiny_scene(**WIDE, device=device)
+    settings = make_render_settings(sh_degree=3, packet_dtype="float32")
+    gx, gy = grid_dims(camera, 16)
+    check(gx * gy == WIDE_TILES and so.sort_key_bits(gx * gy) == 47,
+          f"wide render: {gx} x {gy} tiles")
+    reset_counts()
+    frame_ms = []
+    for i in range(1 + WIDE_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = render(camera, params, alive, settings, [0.0, 0.0, 0.0], device=DEVICE)
+        torch.cuda.synchronize()
+        if i:
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_counts()
+    check_counts(launches, RENDER_KERNELS, 1 + WIDE_TIMED, "wide render path")
+    route = so.sort_instances.last_route
+    check(route == "onesweep", f"wide render: the sort took {route}")
+    img = out["render"]
+    check(img.shape == (WIDE["height"], WIDE["width"], 3) and bool(torch.isfinite(img).all())
+          and float(img.std()) > 0.01, "wide render: image shape, finiteness or flat")
+    screen, _, _ = screen_of((params, alive, camera), settings, device)
+    t = time.perf_counter()
+    pb = tb.pack_bins_torch(screen.detach(), gx, gy, 16, True)
+    plain = rc.blend_packed_torch(pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
+    color = plain[..., 0:3] + plain[..., 4:5] * torch.zeros(3, device=device)
+    plain_img = torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height),
+                            0.0, 1.0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    err = float((img - plain_img).abs().max())
+    check(pb.num_instances == out["num_instances"] and err == 0.0,
+          f"wide render: {out['num_instances']} instances against the plain route's "
+          f"{pb.num_instances}, max abs err {err}")
+    return {"size": f"{WIDE['width']}x{WIDE['height']}", "tiles": gx * gy,
+            "key_bits": so.sort_key_bits(gx * gy), "instances": out["num_instances"],
+            "sort_route": route, "frame_ms_median": statistics.median(frame_ms),
+            "frame_ms": frame_ms, "plain_route_s": plain_s, "max_abs_err": err,
+            "launches": launches}
 
 
 # float32 operations each kept (pixel, instance) pair adds in K5': alpha
@@ -4766,6 +4915,9 @@ def main() -> int:
         render_summary, measures = phase_main_path(device)
         emit(phase="render_path", **render_summary, seconds=time.perf_counter() - t)
         t = time.perf_counter()
+        wide_summary = phase_wide_render(device)
+        emit(phase="wide_render_path", **wide_summary, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
         emit(phase="render_cli", **phase_cli(), seconds=time.perf_counter() - t)
         t = time.perf_counter()
         oit_render_summary, oit_rows = phase_oit_render(device)
@@ -4904,6 +5056,7 @@ def main() -> int:
                                                      ("oit_train", oit_train_summary))})
     rows = kernels_line(measures, {"train": train_summary["launches"],
                                    "render": render_summary["launches"],
+                                   "wide_render": wide_summary["launches"],
                                    "oit_train": oit_train_summary["launches"],
                                    "oit_render": oit_render_summary["launches"],
                                    "bf16_render": bf16_summary["launches"],

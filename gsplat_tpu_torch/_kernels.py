@@ -45,6 +45,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points; every pointer and the stream are void*
 _SIGNATURES = {
     "binning": {
+        "gs_emission_layout": (_LL, _P),
         "gs_emission_tables": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                _P, _LL, _LL, _P),
         "gs_expand_instances": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -4,30 +4,35 @@
 // the tight-cull row runs (`compute_row_runs`, gsplat_tpu/ops/binning.py:171)
 // and the instance prefix sum (:673-675) are XLA fusions inside the jitted
 // frame. The port ran them as ~100 eager torch launches and a host read of
-// the total; here they are one launch. A thread takes four gaussians (a
-// block 1,024, each warp access 32 consecutive rows), reads each one's
-// screen columns once (rect_min, rect_max, conic, mean2d, cull_qmax,
-// tiles_touched: 44 bytes), runs its eight rect rows in registers in the
-// operation order of the plain twin (`_emission_tables_torch`, torch's CUDA
-// ops one by one: `torch.clamp`, `maximum` and `minimum` with their NaN
-// rules written out, `/ tile` as torch's multiply by the reciprocal, float
-// to int32 by `static_cast`), and writes rect [rmin_x, rmin_y, max(rect_w,
+// the total; here they are one launch. Each gaussian's screen columns
+// (rect_min, rect_max, conic, mean2d, cull_qmax, tiles_touched: 44 bytes)
+// are read once, its eight rect rows run in registers in the operation
+// order of the plain twin (`_emission_tables_torch`, torch's CUDA ops one
+// by one: `torch.clamp`, `maximum` and `minimum` with their NaN rules
+// written out, `/ tile` as torch's multiply by the reciprocal, float to
+// int32 by `static_cast`), and it writes rect [rmin_x, rmin_y, max(rect_w,
 // 1), tiles_post], the trimmed flag, t_lo and cum_run (8 int32 each) and
 // cum_excl, the exclusive int64 prefix sum of tiles_post (89 bytes).
 //
-// The prefix sum is a single-pass scan with decoupled look-back (Merrill
-// and Garland), a block of 1,024 rows a scan block: blocks take their place
-// in the order by an atomic ticket, each publishes its aggregate, then
-// finds its exclusive prefix by walking back over its predecessors'
-// published aggregates and inclusive prefixes, a warp 32 blocks at a time,
-// and publishes its own inclusive prefix; the last block writes the total
-// K. A block's status is a flag word, (launch number << 2) | state, beside
-// two int64 value slots, so the sums keep torch's int64 range and nothing
-// is zeroed between launches: a flag from an earlier launch reads as not
-// yet published. The look-back's chain costs time per block: on an H100
-// 80GB HBM3 (700 W) and the 1M-row flagship frame, blocks of 256 rows took
-// 0.110 ms against 0.062 without it, blocks of 1,024 0.083 against 0.072
-// (`scripts/tables_ablate.py`).
+// The prefix sum has no chain between blocks. The grid is as many blocks
+// as the card holds at once (the occupancy query), launched cooperatively,
+// so all are resident; each owns a contiguous chunk of rows (up to 8,192 a
+// round, more rounds past that) and walks it 256 rows a step, a row a
+// thread, keeping each row's tiles_post in shared memory. It publishes its
+// chunk's sum, waits at one grid barrier, sums the sums of the blocks
+// before it (one warp over a few hundred words) and writes its cum_excl
+// from shared memory; block 0 writes K. A decoupled look-back (each
+// 1,024-row block's prefix from its predecessors', blocks in ticket order)
+// spent 0.011 ms of 0.083 in that chain on the flagship render frame (H100
+// 80GB HBM3, 700 W, `scripts/tables_ablate.py`), and its ~1,000 blocks ran
+// in waves; here the grid is one wave at any N. A thread reads its row's
+// int2 columns as 8-byte loads and its conic as three scalar ones, and
+// writes its t_lo and cum_run rows as two int4 each (staging a warp's
+// conic, t_lo and cum_run through shared memory as 512 consecutive bytes
+// a load or store, and a second launch in place of the barrier, measured
+// no faster on the H100: `PERF.md`). A rect row outside the rect or the
+// ellipse skips its two run ends (two square roots and two divisions): its
+// outputs do not depend on them.
 //
 // Bound on the card: bytes (133 a row; a few hundred float operations).
 //
@@ -38,7 +43,7 @@
 // attribute columns, which then ride one wide `lax.sort` as payload.
 //
 // On the GPU a store at a prefix-sum offset is cheap, so the work splits
-// around the sort (kernel St', `csrc/sort.cu`, which carries the gid as its
+// around the sort (`ops/sort.py`: St'' or St', which carry the gid as their
 // payload) into two kernels:
 //
 //   gs_expand_instances  a block of 256 threads owns 256 consecutive
@@ -93,6 +98,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -100,17 +107,13 @@ namespace {
 constexpr int RUN_HMAX = 8;
 constexpr int N_ROWS = 16;
 constexpr int EXPAND_THREADS = 256;  // gaussians per block = slots per step
-constexpr int TABLE_THREADS = 256;   // Bt': threads per block
+constexpr int TABLE_THREADS = 256;   // Bt': threads a block, a row each a step
 constexpr int TABLE_WARPS = TABLE_THREADS / 32;
-constexpr int TABLE_ROWS = 4;        // Bt': gaussians per thread
-constexpr int TABLE_TILE = TABLE_THREADS * TABLE_ROWS;  // gaussians per block = per scan block
-constexpr int TABLE_PARTS = TABLE_ROWS * TABLE_WARPS;  // (row group, warp) sums a block
-static_assert(TABLE_PARTS <= 32, "one warp scans the block's warp sums");
+constexpr int TABLE_CHUNK_MAX = 8192;  // Bt': rows a block holds a round (tiles_post, 32 KB)
+constexpr int TABLE_STATE_HEAD = 2;    // Bt''s state: the barrier's arrivals and its last number
 // the tight cull's outward padding of the run ends (binning.py _RUN_PAD_*)
 constexpr float RUN_PAD_REL = 1.000244140625f;  // 1 + 2^-12
 constexpr float RUN_PAD_ABS = 0.00390625f;      // 2^-8 pixels
-// a scan block's state, the low two bits of its flag word
-constexpr unsigned long long SCAN_AGGREGATE = 1, SCAN_PREFIX = 2;
 
 // torch's CUDA float ops where a NaN must come out as torch's does (fmaxf
 // and fminf alone return the other operand): `torch.maximum` / `minimum`
@@ -184,12 +187,19 @@ __device__ __forceinline__ int row_runs(
         const float dyc = t_clamp(0.0f, dy0, dy1);
         const float s_c = aq2 - det_s * dyc * dyc;
         const bool row_live = s_c >= 0.0f && (float)r < h;
-        const float x_hi = run_end(dy_pk_hi, dy0, dy1, aq2, det_s, nb, mx, a_s, 1.0f);
-        const float x_lo = run_end(dy_pk_lo, dy0, dy1, aq2, det_s, nb, mx, a_s, -1.0f);
-        const float lo = t_maximum(rmin_x, ceilf((x_lo - tile_m1) * inv_tile));
-        const float hi = t_minimum(rmax_x1, floorf(x_hi * inv_tile));
-        const float run = row_live ? t_clamp_min(hi - lo + 1.0f, 0.0f) : 0.0f;
-        t_lo[r] = static_cast<int>(row_live && run > 0.0f ? lo : rmin_x);
+        // a row outside the rect or the ellipse has no run and starts at
+        // rmin_x, whatever its ends: only a live row computes them (most
+        // gaussians span two or three rect rows, dead ones none)
+        float lo = rmin_x, run = 0.0f;
+        if (row_live) {
+            const float x_hi = run_end(dy_pk_hi, dy0, dy1, aq2, det_s, nb, mx, a_s, 1.0f);
+            const float x_lo = run_end(dy_pk_lo, dy0, dy1, aq2, det_s, nb, mx, a_s, -1.0f);
+            const float first = t_maximum(rmin_x, ceilf((x_lo - tile_m1) * inv_tile));
+            const float hi = t_minimum(rmax_x1, floorf(x_hi * inv_tile));
+            run = t_clamp_min(hi - first + 1.0f, 0.0f);
+            if (run > 0.0f) lo = first;
+        }
+        t_lo[r] = static_cast<int>(lo);
         // the twin's explicit column adds: the inclusive prefix, less the row
         cum_inc = r == 0 ? run : cum_inc + run;
         cum_run[r] = static_cast<int>(cum_inc - run);
@@ -197,153 +207,209 @@ __device__ __forceinline__ int row_runs(
     return static_cast<int>(trim ? cum_inc : (float)touched);
 }
 
-// a scan block's value, then its flag: a reader that sees the flag of this
-// launch reads the value written before it (volatile: past the L1)
-__device__ __forceinline__ void publish(unsigned long long* flag, unsigned long long* value,
-                                        int blk, unsigned long long v, unsigned long long word)
-{
-    *(volatile unsigned long long*)(value + blk) = v;
-    __threadfence();
-    *(volatile unsigned long long*)(flag + blk) = word;
-}
-
 __device__ __forceinline__ unsigned long long load_volatile(const unsigned long long* p)
 {
     return *(const volatile unsigned long long*)p;
 }
 
-__global__ void __launch_bounds__(TABLE_THREADS) emission_tables_kernel(
-    const int* __restrict__ rect_min,       // (N, 2)
-    const int* __restrict__ rect_max,       // (N, 2)
-    const float* __restrict__ conic,        // (N, 3)
-    const float* __restrict__ mean2d,       // (N, 2)
-    const float* __restrict__ cull_qmax,    // (N,)
-    const int* __restrict__ tiles_touched,  // (N,)
-    int n, int tile, int tight_cull,
-    int4* __restrict__ rect,                // (N, 4) rmin_x, rmin_y, max(rect_w, 1), tiles_post
-    unsigned char* __restrict__ trimmed,    // (N,)
-    int4* __restrict__ t_lo,                // (N, 8)
-    int4* __restrict__ cum_run,             // (N, 8)
-    long long* __restrict__ cum_excl,       // (N,)
-    long long* __restrict__ total,          // () K
-    unsigned long long* flag,               // (blocks,) (epoch << 2) | state
-    unsigned long long* agg,                // (blocks,) each block's sum of tiles_post
-    unsigned long long* incl,               // (blocks,) the sum through each block
-    unsigned int* ticket,                   // () 0 before and after a launch
-    unsigned long long epoch)               // this launch's number, > 0
+__device__ __forceinline__ void store_volatile(unsigned long long* p, unsigned long long v)
 {
-    // each (row group, warp)'s sum of tiles_post, then their exclusive scan
-    __shared__ unsigned long long s_part[TABLE_PARTS];
-    __shared__ unsigned long long s_excl;  // the block's exclusive prefix
-    __shared__ int s_block;                // the block's place in the order
+    *(volatile unsigned long long*)p = v;
+}
 
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    if (t == 0) s_block = (int)atomicAdd(ticket, 1u);
-    __syncthreads();
-    const int blk = s_block;
-    // the last ticket: every other block holds its own, the counter is free
-    if (t == 0 && blk == (int)gridDim.x - 1) *ticket = 0u;
+__device__ __forceinline__ unsigned long long warp_sum64(unsigned long long v)
+{
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    return v;
+}
 
-    // 1. the block's TABLE_TILE gaussians in TABLE_ROWS groups of
-    // TABLE_THREADS consecutive ones (each warp store covers 32 rows): each
-    // thread's tables in registers, out; tiles_post kept with its warp's
-    // inclusive scan (int64, wrapping as torch's cumsum does)
-    const int g0 = blk * TABLE_TILE + t;
-    unsigned long long own[TABLE_ROWS], in_warp[TABLE_ROWS];
+// Bt''s pointers and sizes, one kernel argument
+struct TableIo {
+    const int2* rect_min;         // (N, 2)
+    const int2* rect_max;         // (N, 2)
+    const float* conic;           // (N, 3)
+    const float2* mean2d;         // (N, 2)
+    const float* cull_qmax;       // (N,)
+    const int* tiles_touched;     // (N,)
+    int4* rect;                   // (N, 4) rmin_x, rmin_y, max(rect_w, 1), tiles_post
+    unsigned char* trimmed;       // (N,)
+    int4* t_lo;                   // (N, 8)
+    int4* cum_run;                // (N, 8)
+    long long* cum_excl;          // (N,)
+    long long* total;             // () K
+    int n, tile, tight_cull;
+};
+
+// 1. One round's tables of the block's rows [base, base + rows), a row a
+// thread, TABLE_THREADS consecutive rows a step. Each row's tiles_post
+// goes to s_tp; returns the thread's int64 sum of them.
+__device__ __forceinline__ unsigned long long table_rows(
+    const TableIo& io, long long base, int rows, int* s_tp)
+{
+    const float ftile = (float)io.tile, tile_m1 = (float)(io.tile - 1);
+    const float inv_tile = 1.0f / (float)io.tile;
+    unsigned long long acc = 0;
+    for (int i = threadIdx.x; i < rows; i += TABLE_THREADS) {
+        const long long g = base + i;
+        int lo[RUN_HMAX], cr[RUN_HMAX];
 #pragma unroll
-    for (int k = 0; k < TABLE_ROWS; ++k) {
-        const int g = g0 + k * TABLE_THREADS;
-        int tp = 0;
-        if (g < n) {
-            const int rx0 = rect_min[2 * g], ry0 = rect_min[2 * g + 1];
-            const int rx1 = rect_max[2 * g], ry1 = rect_max[2 * g + 1];
-            const int touched = tiles_touched[g];
-            int lo[RUN_HMAX], cr[RUN_HMAX];
-            bool trim = false;
-            if (tight_cull) {
-                tp = row_runs(rx0, ry0, rx1, ry1, touched, conic[3 * g], conic[3 * g + 1],
-                              conic[3 * g + 2], mean2d[2 * g], mean2d[2 * g + 1], cull_qmax[g],
-                              (float)tile, (float)(tile - 1), 1.0f / (float)tile, trim, lo, cr);
-            } else {
-                tp = touched;
-#pragma unroll
-                for (int r = 0; r < RUN_HMAX; ++r) lo[r] = cr[r] = 0;
-            }
-            const int w = (int)((unsigned)rx1 - (unsigned)rx0);
-            rect[g] = make_int4(rx0, ry0, w > 1 ? w : 1, tp);
-            trimmed[g] = trim;
-            t_lo[2 * g] = make_int4(lo[0], lo[1], lo[2], lo[3]);
-            t_lo[2 * g + 1] = make_int4(lo[4], lo[5], lo[6], lo[7]);
-            cum_run[2 * g] = make_int4(cr[0], cr[1], cr[2], cr[3]);
-            cum_run[2 * g + 1] = make_int4(cr[4], cr[5], cr[6], cr[7]);
+        for (int r = 0; r < RUN_HMAX; ++r) lo[r] = cr[r] = 0;
+        const int2 r0 = __ldg(io.rect_min + g), r1 = __ldg(io.rect_max + g);
+        const int touched = __ldg(io.tiles_touched + g);
+        bool trim = false;
+        int tp = touched;
+        if (io.tight_cull) {
+            const float2 m = __ldg(io.mean2d + g);
+            tp = row_runs(r0.x, r0.y, r1.x, r1.y, touched, __ldg(io.conic + 3 * g),
+                          __ldg(io.conic + 3 * g + 1), __ldg(io.conic + 3 * g + 2), m.x, m.y,
+                          __ldg(io.cull_qmax + g), ftile, tile_m1, inv_tile, trim, lo, cr);
         }
-        own[k] = (unsigned long long)(long long)tp;
-        unsigned long long v = own[k];
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const unsigned long long u = __shfl_up_sync(0xffffffffu, v, d);
-            if (lane >= d) v += u;
-        }
-        in_warp[k] = v;
-        if (lane == 31) s_part[k * TABLE_WARPS + warp] = v;
+        const int w = (int)((unsigned)r1.x - (unsigned)r0.x);
+        io.rect[g] = make_int4(r0.x, r0.y, w > 1 ? w : 1, tp);
+        io.trimmed[g] = trim;
+        io.t_lo[2 * g] = make_int4(lo[0], lo[1], lo[2], lo[3]);
+        io.t_lo[2 * g + 1] = make_int4(lo[4], lo[5], lo[6], lo[7]);
+        io.cum_run[2 * g] = make_int4(cr[0], cr[1], cr[2], cr[3]);
+        io.cum_run[2 * g + 1] = make_int4(cr[4], cr[5], cr[6], cr[7]);
+        s_tp[i] = tp;
+        acc += (unsigned long long)(long long)tp;
     }
-    __syncthreads();
+    return acc;
+}
 
-    // 2. warp 0: the exclusive scan of the 32 (group, warp) sums, in row
-    // order; then the block's exclusive prefix: its aggregate out, and a walk
-    // back 32 blocks at a time, summing aggregates up to the nearest block
-    // that has published its inclusive prefix (block 0's is its aggregate)
-    if (warp == 0) {
-        const unsigned long long part = lane < TABLE_PARTS ? s_part[lane] : 0ull;
-        unsigned long long v = part;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const unsigned long long u = __shfl_up_sync(0xffffffffu, v, d);
-            if (lane >= d) v += u;
-        }
-        if (lane < TABLE_PARTS) s_part[lane] = v - part;
-        const unsigned long long block_sum = __shfl_sync(0xffffffffu, v, 31);
-        const unsigned long long tag = epoch << 2;
-        unsigned long long excl = 0;
-        if (blk == 0) {
-            if (lane == 0) publish(flag, incl, 0, block_sum, tag | SCAN_PREFIX);
+// The block's sum of `acc` (int64, wrapping as torch's cumsum does) into
+// its slot of this round's block sums
+__device__ __forceinline__ void publish_block_sum(unsigned long long acc,
+                                                  unsigned long long* slot,
+                                                  unsigned long long* s_sum)
+{
+    const int t = threadIdx.x;
+    acc = warp_sum64(acc);
+    if ((t & 31) == 0) s_sum[t >> 5] = acc;
+    __syncthreads();
+    if (t == 0) {
+        unsigned long long b = 0;
+        for (int w = 0; w < TABLE_WARPS; ++w) b += s_sum[w];
+        store_volatile(slot, b);
+    }
+    __syncthreads();  // s_sum is written again in the next round
+}
+
+// Every block of the grid waits here until all have arrived, blocks the
+// cooperative launch made resident together: thread 0 counts the block in
+// (its writes fenced before), the last one resets the count and publishes
+// `target`, the barrier's number (numbers only grow, launch after launch,
+// so an earlier barrier's reads as not yet released)
+__device__ __forceinline__ void grid_barrier(unsigned long long* state, unsigned long long target)
+{
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned int* arrived = reinterpret_cast<unsigned int*>(state);
+        __threadfence();
+        if (atomicAdd(arrived, 1u) == gridDim.x - 1) {
+            atomicExch(arrived, 0u);
+            __threadfence();
+            store_volatile(state + 1, target);
         } else {
-            if (lane == 0) publish(flag, agg, blk, block_sum, tag | SCAN_AGGREGATE);
-            for (int end = blk - 1;; end -= 32) {
-                const int p = end - lane;  // lane 0 the nearest
-                unsigned long long state = SCAN_PREFIX, val = 0;
-                if (p >= 0) {
-                    unsigned long long f;
-                    while (((f = load_volatile(flag + p)) >> 2) != epoch) __nanosleep(32);
-                    __threadfence();
-                    state = f & 3ull;
-                    val = load_volatile((state == SCAN_PREFIX ? incl : agg) + p);
-                }
-                const unsigned prefix = __ballot_sync(0xffffffffu, state == SCAN_PREFIX);
-                const int stop = prefix ? __ffs(prefix) - 1 : 31;
-                unsigned long long sum = lane <= stop ? val : 0ull;
-#pragma unroll
-                for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
-                excl += sum;
-                if (prefix) break;
-            }
-            if (lane == 0) publish(flag, incl, blk, excl + block_sum, tag | SCAN_PREFIX);
+            while (load_volatile(state + 1) < target) __nanosleep(64);
         }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// 2. Warp 0 sums this round's block sums: those of the blocks before this
+// one into s_excl[0], all into s_excl[1]
+__device__ __forceinline__ void block_prefix(const unsigned long long* sums,
+                                             unsigned long long* s_excl)
+{
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x, blk = blockIdx.x;
+        unsigned long long before = 0, all = 0;
+        for (int b = lane; b < (int)gridDim.x; b += 32) {
+            const unsigned long long v = __ldcg(sums + b);
+            all += v;
+            if (b < blk) before += v;
+        }
+        before = warp_sum64(before);
+        all = warp_sum64(all);
         if (lane == 0) {
-            s_excl = excl;
-            if (blk == (int)gridDim.x - 1) *total = (long long)(excl + block_sum);
+            s_excl[0] = before;
+            s_excl[1] = all;
         }
     }
     __syncthreads();
+}
 
-    // 3. cum_excl = the block's prefix + the rows' before it in the block
-    const unsigned long long excl = s_excl;
+// 3. cum_excl of the block's rows: `prefix` plus each row's exclusive scan
+// in the chunk, TABLE_THREADS rows a step (a warp's shuffle scan, then the
+// warps' sums), from the rows' tiles_post in s_tp
+__device__ __forceinline__ void write_cum_excl(long long* cum_excl, long long base, int rows,
+                                               unsigned long long prefix, const int* s_tp,
+                                               unsigned long long* s_sum)
+{
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    for (int i0 = 0; i0 < rows; i0 += TABLE_THREADS) {
+        const int i = i0 + t;
+        const unsigned long long v = i < rows ? (unsigned long long)(long long)s_tp[i] : 0ull;
+        unsigned long long incl = v;
 #pragma unroll
-    for (int k = 0; k < TABLE_ROWS; ++k) {
-        const int g = g0 + k * TABLE_THREADS;
-        if (g < n)
-            cum_excl[g] = (long long)(excl + s_part[k * TABLE_WARPS + warp] + in_warp[k] - own[k]);
+        for (int d = 1; d < 32; d <<= 1) {
+            const unsigned long long u = __shfl_up_sync(0xffffffffu, incl, d);
+            if (lane >= d) incl += u;
+        }
+        if (lane == 31) s_sum[warp] = incl;
+        __syncthreads();
+        unsigned long long before = 0, step = 0;
+#pragma unroll
+        for (int w = 0; w < TABLE_WARPS; ++w) {
+            const unsigned long long s = s_sum[w];
+            step += s;
+            if (w < warp) before += s;
+        }
+        if (i < rows) cum_excl[base + i] = (long long)(prefix + before + incl - v);
+        prefix += step;
+        __syncthreads();
     }
+}
+
+// The block's rows in round r: `chunk` consecutive ones, the rounds' chunks
+// in block order
+__device__ __forceinline__ int rows_of(int n, int chunk, int r, long long& base)
+{
+    base = ((long long)r * gridDim.x + blockIdx.x) * chunk;
+    const long long left = (long long)n - base;
+    return left <= 0 ? 0 : left < chunk ? (int)left : chunk;
+}
+
+// Bt': persistent blocks, all resident at once. In each round a block
+// computes its chunk's tables (1) and publishes its chunk's sum; after one
+// grid barrier it sums the earlier blocks' (2) and writes its cum_excl
+// from the tiles_post it kept in shared memory (3); block 0 writes K.
+__global__ void __launch_bounds__(TABLE_THREADS) emission_tables_kernel(
+    TableIo io, int chunk, int rounds,
+    unsigned long long* state,  // TABLE_STATE_HEAD words, then (rounds, blocks) sums
+    unsigned long long number)  // the first barrier's number
+{
+    __shared__ int s_tp[TABLE_CHUNK_MAX];
+    __shared__ unsigned long long s_sum[TABLE_WARPS];
+    __shared__ unsigned long long s_excl[2];
+
+    unsigned long long* sums = state + TABLE_STATE_HEAD;
+    unsigned long long carry = 0;  // the earlier rounds' sum
+    for (int r = 0; r < rounds; ++r) {
+        long long base;
+        const int rows = rows_of(io.n, chunk, r, base);
+        const unsigned long long acc = table_rows(io, base, rows, s_tp);
+        unsigned long long* round_sums = sums + (long long)r * gridDim.x;
+        publish_block_sum(acc, round_sums + blockIdx.x, s_sum);
+        grid_barrier(state, number + r);
+        block_prefix(round_sums, s_excl);
+        write_cum_excl(io.cum_excl, base, rows, carry + s_excl[0], s_tp, s_sum);
+        carry += s_excl[1];
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) *io.total = (long long)carry;
 }
 
 __global__ void __launch_bounds__(EXPAND_THREADS) expand_instances_kernel(
@@ -501,29 +567,84 @@ __global__ void pack_instances_kernel(
     for (int r = 10; r < N_ROWS; ++r) inst_t[r * k + i] = 0.0f;
 }
 
+// Bt''s launch: blocks, rows a block a round (a multiple of 32, at most
+// TABLE_CHUNK_MAX), rounds and the state's int64 words for `n` rows. The
+// grid is as many blocks as the card holds at once (the SMs times the
+// kernel's blocks an SM, cached a device), or fewer for a small N.
+struct TableLayout { long long blocks, chunk, rounds, words; };
+
+cudaError_t table_layout(long long n, TableLayout* l)
+{
+    static int per_sm_of[64], sms_of[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidValue;
+    if (per_sm_of[dev] == 0) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm_of[dev], (const void*)emission_tables_kernel, TABLE_THREADS, 0);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess || per_sm_of[dev] < 1) {
+            per_sm_of[dev] = 0;
+            return err != cudaSuccess ? err : cudaErrorInvalidValue;
+        }
+    }
+    const long long most = (long long)sms_of[dev] * per_sm_of[dev];
+    l->blocks = std::min(most, std::max(1ll, (n + 31) / 32));
+    const long long share = (n + l->blocks - 1) / l->blocks;
+    l->chunk = std::min((long long)TABLE_CHUNK_MAX, std::max(32ll, (share + 31) / 32 * 32));
+    l->rounds = std::max(1ll, (n + l->blocks * l->chunk - 1) / (l->blocks * l->chunk));
+    l->words = TABLE_STATE_HEAD + l->rounds * l->blocks;
+    return cudaSuccess;
+}
+
 }  // namespace
 
-// `scan` is the device's persistent scan state, int64 words: flags,
-// aggregates and inclusive prefixes of `scan_blocks` blocks each, then the
-// ticket; zeroed once when allocated. `epoch` numbers the launch: each
-// launch on that state needs its own, in [1, 2^62).
+// out[0] blocks, out[1] rows a block a round, out[2] rounds, out[3] the
+// state's int64 words
+extern "C" int gs_emission_layout(long long n, long long* out)
+{
+    TableLayout l;
+    if (n < 0 || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = table_layout(n, &l);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = l.blocks;
+    out[1] = l.chunk;
+    out[2] = l.rounds;
+    out[3] = l.words;
+    return 0;
+}
+
+// `state` is the device's Bt' state, `state_words` int64 words (at least
+// the layout's), zeroed once when allocated: the barrier's count of
+// arrivals (0 before and after a launch) and its last number, then the
+// block sums. `number` is this launch's first barrier number: greater than
+// any an earlier launch on that state used, which used `rounds` from its
+// own.
 extern "C" int gs_emission_tables(
     const void* rect_min, const void* rect_max, const void* conic, const void* mean2d,
     const void* cull_qmax, const void* tiles_touched, int n, int tile, int tight_cull,
     void* rect, void* trimmed, void* t_lo, void* cum_run, void* cum_excl, void* total,
-    void* scan, long long scan_blocks, long long epoch, void* stream)
+    void* state, long long state_words, long long number, void* stream)
 {
-    const long long blocks = (n + (long long)TABLE_TILE - 1) / TABLE_TILE;
-    if (n <= 0 || tile <= 0 || epoch <= 0 || epoch >= (1ll << 62) || blocks > scan_blocks)
+    TableLayout l;
+    if (n <= 0 || tile <= 0 || number <= 0 || number >= (1ll << 62))
         return (int)cudaErrorInvalidValue;
-    unsigned long long* s = (unsigned long long*)scan;
-    emission_tables_kernel<<<(unsigned int)blocks, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)rect_min, (const int*)rect_max, (const float*)conic, (const float*)mean2d,
-        (const float*)cull_qmax, (const int*)tiles_touched, n, tile, tight_cull, (int4*)rect,
-        (unsigned char*)trimmed, (int4*)t_lo, (int4*)cum_run, (long long*)cum_excl,
-        (long long*)total, s, s + scan_blocks, s + 2 * scan_blocks,
-        (unsigned int*)(s + 3 * scan_blocks), (unsigned long long)epoch);
-    return (int)cudaGetLastError();
+    cudaError_t err = table_layout(n, &l);
+    if (err != cudaSuccess) return (int)err;
+    if (l.words > state_words) return (int)cudaErrorInvalidValue;
+    TableIo io{(const int2*)rect_min, (const int2*)rect_max, (const float*)conic,
+               (const float2*)mean2d, (const float*)cull_qmax, (const int*)tiles_touched,
+               (int4*)rect, (unsigned char*)trimmed, (int4*)t_lo, (int4*)cum_run,
+               (long long*)cum_excl, (long long*)total, n, tile, tight_cull};
+    int chunk = (int)l.chunk, rounds = (int)l.rounds;
+    unsigned long long* s = (unsigned long long*)state;
+    unsigned long long first = (unsigned long long)number;
+    void* args[] = {&io, &chunk, &rounds, &s, &first};
+    err = cudaLaunchCooperativeKernel(emission_tables_kernel, dim3((unsigned)l.blocks),
+                                      dim3(TABLE_THREADS), args, 0, (cudaStream_t)stream);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int gs_expand_instances(

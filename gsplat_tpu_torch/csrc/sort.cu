@@ -66,7 +66,9 @@
 // The grid of tiles: 2^(key_bits - 31) bins, one per tile id, at most
 // MAX_BINS (32,768: key_bits 46, 3840x2160's 32,400 tiles); a count or
 // scatter block holds one 32-bit counter a bin in shared memory (128 KB at
-// 46 bits).
+// 46 bits). That limit is St'''s own, not the sort's: `sort_instances`
+// sends wider keys (4096x2160's 34,560 tiles, key_bits 47) to St', which
+// takes up to 62 bits, whatever K.
 //
 // State: one buffer per device, zeroed when allocated: the counter of
 // finished count blocks and the tile counters return to 0 in every launch;

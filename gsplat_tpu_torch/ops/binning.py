@@ -8,7 +8,9 @@ ranges and the (16, K) float32 instance table.
 On a CUDA tensor it runs kernel Bt' (`emission_tables`, `csrc/binning.cu`)
 for the emission tables, then kernel K1' (replacing the Pallas
 `_expand_kernel`, `gsplat_tpu/ops/binning.py:485`) in two launches around
-kernel St'', the sort (`ops/sort.py`, `csrc/sort.cu`):
+the sort (`ops/sort.py`: kernel St'', `csrc/sort.cu`, for up to 2^23 keys
+on a grid of up to 2^15 tiles; kernel St', `csrc/sort_onesweep.cu`, for
+more keys or a wider grid, up to 2^31 tiles):
 
 - `emission_tables`: per gaussian, the tight-cull row runs of
   `compute_row_runs` (`t_lo`, `cum_run`, the trimmed flag, `tiles_post`),
@@ -25,7 +27,7 @@ kernel St'', the sort (`ops/sort.py`, `csrc/sort.cu`):
   and its gaussian id. Slots go out in gid order, so a stable sort on the
   key gives the JAX total order (tile, depth bits, gid): St'' buckets
   the keys by tile, sorts each tile's (depth bits, slot) and gathers the
-  gid (`ops/sort.py`). The same
+  gid, St' radix-sorts them with the gid as payload (`ops/sort.py`). The same
   launch writes one (12,) float32 packet row per live gaussian: the ten table
   columns (conic pre-folded to [-a/2, -b, -c/2], invz = 1/max(depth, 0.2)),
   unrounded, and two zeros; rows of dead gaussians are left unwritten.
@@ -47,7 +49,7 @@ so the blends compute exactly what the JAX kernels compute after
 performance work.
 
 The JAX package leaves the sort to XLA (`lax.sort`, `binning.py:758`);
-the port sorts with St'' on the card. On a CPU tensor, `pack_bins` runs the
+the port sorts with St'' or St' on the card. On a CPU tensor, `pack_bins` runs the
 plain twin `pack_bins_torch`, which computes the same function with tensor
 ops (`compute_row_runs` and `torch.cumsum` for the tables, `torch.sort`
 and a gather for the sort).
@@ -61,8 +63,8 @@ prefix sum, as the CUDA reference does (`rasterize_points.cu:27-33`). So
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-import itertools
 
 import torch
 
@@ -322,26 +324,36 @@ def _emission_tables_torch(screen: ScreenGaussians, tile: int, tight_cull: bool)
     )
 
 
-TABLE_TILE = 1024  # Bt''s gaussians per block, one scan block each (`csrc/binning.cu`)
-_SCAN_WORDS = 3  # int64 words of scan state a block: flag, aggregate, inclusive prefix
-_table_scans: dict = {}  # device -> Bt''s persistent scan state
-_table_epoch = itertools.count(1)  # launch numbers: no two launches share one
+_TABLE_HEAD = 2  # Bt''s state before its block sums: the barrier's arrivals and last number
+_table_states: dict = {}  # device -> [Bt''s state, its next barrier number]
 
 
-def _table_scan(device, blocks):
-    """Bt''s scan state on `device` for at least `blocks` blocks: a flag,
-    an aggregate and an inclusive prefix a block, then the ticket, zeroed
-    once when allocated (grown by doubling). A flag holds its launch's
-    number, so a later launch reads an earlier one's as unpublished and
-    nothing is zeroed between launches. Launches on one stream share it,
-    not launches on two streams at once."""
-    scan = _table_scans.get(device)
-    cap = 0 if scan is None else (scan.numel() - 1) // _SCAN_WORDS
-    if cap < blocks:
-        cap = max(blocks, 2 * cap)
-        scan = torch.zeros((_SCAN_WORDS * cap + 1,), dtype=torch.int64, device=device)
-        _table_scans[device] = scan
-    return scan, cap
+def table_layout(n):
+    """Bt''s launch for `n` rows as built (`gs_emission_layout`, on the
+    current device): (blocks, rows a block a round, rounds, the state's
+    int64 words)."""
+    from gsplat_tpu_torch import _kernels
+
+    out = (ctypes.c_longlong * 4)()
+    err = _kernels.load("binning").gs_emission_layout(n, ctypes.addressof(out))
+    _kernels.check(err, "emission_tables layout")
+    return tuple(out)
+
+
+def _table_state(device, words, rounds):
+    """Bt''s state on `device`, at least `words` int64 words, zeroed when
+    allocated (grown by doubling), and the first of `rounds` new barrier
+    numbers on it. The barrier returns its count of arrivals to 0 and
+    publishes its number; a later launch's numbers are greater, so nothing
+    is zeroed between launches. Launches on one stream share it, not
+    launches on two streams at once."""
+    entry = _table_states.setdefault(device, [None, 1])
+    if entry[0] is None or entry[0].numel() < words:
+        cap = words if entry[0] is None else max(words, 2 * entry[0].numel())
+        entry[0] = torch.zeros((cap,), dtype=torch.int64, device=device)
+    first = entry[1]
+    entry[1] += rounds
+    return entry[0], first
 
 
 def emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool, read_total=True):
@@ -361,24 +373,31 @@ def emission_tables(screen: ScreenGaussians, tile: int, tight_cull: bool, read_t
                   (screen.rect_max, torch.int32, (n, 2)), (screen.conic, torch.float32, (n, 3)),
                   (screen.mean2d, torch.float32, (n, 2)), (screen.cull_qmax, torch.float32, (n,)),
                   (screen.tiles_touched, torch.int32, (n,)))
-    i32, i64 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.int64, device=dev)
-    rect = torch.empty((n, 4), **i32)
-    cum_excl = torch.empty((n,), **i64)
-    trimmed = torch.empty((n,), dtype=torch.uint8, device=dev)
-    t_lo = torch.empty((n, RUN_HMAX), **i32)
-    cum_run = torch.empty((n, RUN_HMAX), **i32)
+    # the six outputs as views of one allocation (one caching-allocator call
+    # where six cost the host more than the kernel takes): rect, t_lo,
+    # cum_run, cum_excl, K and trimmed at 16-byte multiples of N
+    buf = torch.empty((89 * n + 16,), dtype=torch.uint8, device=dev)
+    rect = buf[:16 * n].view(torch.int32).view(n, 4)
+    t_lo = buf[16 * n:48 * n].view(torch.int32).view(n, RUN_HMAX)
+    cum_run = buf[48 * n:80 * n].view(torch.int32).view(n, RUN_HMAX)
+    cum_excl = buf[80 * n:88 * n].view(torch.int64)
+    total = buf[88 * n:88 * n + 8].view(torch.int64).view(())
+    trimmed = buf[88 * n + 16:]
     tables = (rect, cum_excl, trimmed, t_lo, cum_run)
     if n == 0:
-        return *tables, 0 if read_total else torch.zeros((), **i64)
-    total = torch.empty((), **i64)
+        return *tables, 0 if read_total else total.zero_()
+    # the kernel reads the int2 and float2 columns as 8-byte loads: a
+    # contiguous view off an 8-byte boundary (a one-row slice of the mesh's
+    # gathered columns) is copied
     args = [c.contiguous() for c in (screen.rect_min, screen.rect_max, screen.conic,
                                      screen.mean2d, screen.cull_qmax, screen.tiles_touched)]
-    scan, cap = _table_scan(dev, -(-n // TABLE_TILE))
-    lib = _kernels.load("binning")
-    err = lib.gs_emission_tables(
+    args = [c.clone() if c.data_ptr() % 8 else c for c in args]
+    _, _, rounds, words = table_layout(n)
+    state, first = _table_state(dev, words, rounds)
+    err = _kernels.load("binning").gs_emission_tables(
         *(t.data_ptr() for t in args), n, tile, int(tight_cull),
         rect.data_ptr(), trimmed.data_ptr(), t_lo.data_ptr(), cum_run.data_ptr(),
-        cum_excl.data_ptr(), total.data_ptr(), scan.data_ptr(), cap, next(_table_epoch),
+        cum_excl.data_ptr(), total.data_ptr(), state.data_ptr(), state.numel(), first,
         _kernels.stream(dev),
     )
     _kernels.check(err, "emission_tables")
@@ -628,8 +647,8 @@ def pack_bins(
 
     Same instance order as `bin_gaussians`: (tile, depth bits, gaussian id).
     On a CUDA tensor through kernels Bt' (`emission_tables`), K1'
-    (`expand_instances`, `pack_instances`) and St'' (`sort_instances`); on a
-    CPU tensor through `pack_bins_torch`.
+    (`expand_instances`, `pack_instances`) and St'' or St'
+    (`sort_instances`); on a CPU tensor through `pack_bins_torch`.
     Non-differentiable structure: the screen quantities are detached, as
     `binning.py:657` stops their gradients.
     """

@@ -8,9 +8,10 @@ their gaussian ids as payload, in place of the JAX package's `lax.sort`
 stable.
 
 `sort_instances` launches one of two routes on CUDA tensors, by the number
-of keys K (`route`):
+of keys K and the keys' live bits (`route`):
 
-- St'', up to ONESWEEP_MIN_KEYS keys: a segmented sort in three launches.
+- St'', up to ONESWEEP_MIN_KEYS keys of at most SEGMENTED_MAX_KEY_BITS (46)
+  bits: a segmented sort in three launches.
   A count of each tile's keys (the tile field only partitions them), an
   unordered scatter of each key into its tile's bucket as the value
   `(depth_bits << 32) | slot`, and a sort of each bucket by that value on
@@ -22,8 +23,9 @@ of keys K (`route`):
   block; one of more than CAP keys (2,048; `sort_layout`) takes the big
   route, chosen on the card: its CAP runs sorted, then merged pairwise
   through device memory by the block.
-- St', above it: an LSD radix sort over the key's live bits (bit 31 taken
-  out), 8 bits a pass, with the gid as payload: a histogram launch, then a
+- St', for more keys or wider ones (up to MAX_KEY_BITS, 62): an LSD radix
+  sort over the key's live bits (bit 31 taken out), 8 bits a pass, with the
+  gid as payload: a histogram launch, then a
   launch a pass, each pass ranking a tile of keys stably within its warps
   and finding each digit's place by a decoupled look-back. Its passes cost
   the same per key at any K; St'''s scatter writes into buckets that
@@ -40,8 +42,10 @@ depth is above 0.2 (the projection's valid rows; others emit no slot), so
 bit 31 of every key (the depth's sign) is 0 and the key with that bit taken
 out lies under 2^key_bits. `sort_key_bits(num_tiles)` gives the key_bits
 of a tile grid: 31 depth bits and the tile id's. St'' keeps a counter a
-tile id in shared memory, so the sort takes at most 2^15 tile ids (key_bits
-46: 3840x2160 has 32,400 tiles).
+tile id in shared memory, so it takes at most 2^15 tile ids (key_bits 46:
+3840x2160 has 32,400 tiles). A grid of more (4096x2160 has 34,560, key_bits
+47) takes St' whatever K: it sorts keys of up to 62 bits (2^31 tile ids),
+in ceil(key_bits / 8) passes, six from 41 to 48 bits.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from typing import NamedTuple
 
 import torch
 
-MAX_KEY_BITS = 46
+MAX_KEY_BITS = 62  # St''s widest keys (`csrc/sort_onesweep.cu`)
+SEGMENTED_MAX_KEY_BITS = 46  # St'''s: a shared counter a tile id, 2^15 of them
 ONESWEEP_MIN_KEYS = 1 << 23  # St' for more keys than this, St'' up to it
 _states: dict = {}  # device -> St'''s state (int64 words), zeroed once
 _EPOCHS = 1 << 30  # St''s epochs: [1, 2^30) (`csrc/sort_onesweep.cu`)
@@ -76,10 +81,13 @@ def sort_instances_torch(keys, gid, key_bits):
     return keys_sorted, gid[perm]
 
 
-def route(k: int) -> str:
-    """The kernel `sort_instances` launches for `k` keys: "segmented"
-    (St'') or "onesweep" (St')."""
-    return "onesweep" if k > ONESWEEP_MIN_KEYS else "segmented"
+def route(k: int, key_bits: int) -> str:
+    """The kernel `sort_instances` launches for `k` keys of `key_bits` live
+    bits: "segmented" (St'') or "onesweep" (St'), which also takes every
+    key too wide for St'''s tile counters."""
+    if key_bits > SEGMENTED_MAX_KEY_BITS or k > ONESWEEP_MIN_KEYS:
+        return "onesweep"
+    return "segmented"
 
 
 def _check(keys, gid, key_bits):
@@ -117,11 +125,18 @@ class SortLayout(NamedTuple):
     warp_cap: int  # the largest tile a warp sorts
 
 
+def _check_segmented(key_bits):
+    if not 1 <= key_bits <= SEGMENTED_MAX_KEY_BITS:
+        raise ValueError(f"St'' (segmented sort): key_bits={key_bits}, expected 1 ... "
+                         f"{SEGMENTED_MAX_KEY_BITS}")
+
+
 def sort_layout(k, key_bits):
-    """St'''s `SortLayout` for `k` keys of `key_bits`, on the current
-    device."""
+    """St'''s `SortLayout` for `k` keys of `key_bits` (at most
+    SEGMENTED_MAX_KEY_BITS), on the current device."""
     from gsplat_tpu_torch import _kernels
 
+    _check_segmented(key_bits)
     out = (ctypes.c_longlong * 6)()
     err = _kernels.load("sort").gs_sort_layout(k, key_bits, ctypes.addressof(out))
     _kernels.check(err, "sort_layout")
@@ -167,6 +182,7 @@ def _onesweep_state(key, passes, words):
 def _sort_segmented(keys, gid, key_bits, keys_out, gid_out):
     from gsplat_tpu_torch import _kernels
 
+    _check_segmented(key_bits)
     k, dev = keys.shape[0], keys.device
     # the buckets: each key's value (depth bits and slot), grouped by tile
     bucket = torch.empty_like(keys_out)
@@ -196,7 +212,7 @@ def _sort_onesweep(keys, gid, key_bits, keys_out, gid_out):
 
 
 def sort_instances(keys, gid, key_bits):
-    """Kernel St'' or St' (`route(K)`): (keys_sorted (K,) int64, gid_sorted
+    """Kernel St'' or St' (`route(K, key_bits)`): (keys_sorted (K,) int64, gid_sorted
     (K,) int32), bit for bit `sort_instances_torch`. CUDA tensors only;
     K = 0 launches nothing. The keys must meet the precondition in the
     module's notes."""
@@ -211,7 +227,7 @@ def sort_instances(keys, gid, key_bits):
     gid_out = torch.empty((k,), dtype=torch.int32, device=dev)
     if k == 0:
         return keys_out, gid_out
-    taken = route(k)
+    taken = route(k, key_bits)
     (_sort_onesweep if taken == "onesweep" else _sort_segmented)(keys, gid, key_bits, keys_out,
                                                                gid_out)
     sort_instances.launches += 1

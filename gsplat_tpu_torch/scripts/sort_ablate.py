@@ -88,7 +88,8 @@ PARTS_OF_SORT = ("count", "scatter", "segment")  # St'''s kernels
 @contextlib.contextmanager
 def on_route(name):
     """`sort_instances` takes route `name` ("segmented" or "onesweep")
-    inside the block, whatever the number of keys."""
+    inside the block, whatever the number of keys; keys of more than
+    SEGMENTED_MAX_KEY_BITS take St' whatever is forced."""
     from gsplat_tpu_torch.ops import sort as so
 
     kept = so.ONESWEEP_MIN_KEYS

@@ -1,35 +1,43 @@
 """The binning kernels' CUDA source (`gsplat_tpu_torch/csrc/binning.cu`) run
 on the host: Bt' (`emission_tables`) against its plain twin
-`_emission_tables_torch` bit for bit, and K1' (`expand_instances`,
-`pack_instances`) from the same build on those tables against theirs.
+`_emission_tables_torch` bit for bit, K included, and K1'
+(`expand_instances`, `pack_instances`) from the same build on those tables
+against theirs.
 
 The source is built with `g++ -O1 -ffp-contract=off` (no contraction, as
 `-fmad=false` on the card) against the stub `cuda_runtime.h` of
 `tests/test_torch_loss_kernel_host.py` (a block's threads as fibers on one
 host thread, barriers and shuffles between them), extended as
 `tests/test_torch_skeleton_kernel_host.py` extends it (warp votes,
-`__ffs`), and here with 64-bit shuffles, `int4` and a `__nanosleep` that
-yields to the other fibers. Every `__shared__` declaration becomes a
-reference into the stub's shared memory, laid out in declaration order and
-filled with NaN bytes before each block, so a value read before it was
-written shows. The stub runs the blocks one after another, so each block
-finds its predecessors' inclusive prefixes published; a host edit (which
-must match the source once) lets a test withhold all but every k-th
-block's, so that the look-back sums aggregates over more than one window
-of 32 blocks.
+`__ffs`), and here with 64-bit shuffles, `int2`, `int4` and a
+`__nanosleep` that yields to the other fibers. Every `__shared__`
+declaration becomes a reference into the stub's shared memory, laid out in
+declaration order and filled with NaN bytes before each block, so a value
+read before it was written shows.
+
+Bt' is one cooperative launch of persistent blocks that meet at a grid
+barrier, so the stub launches it cooperatively (`COOP`): every thread of
+every block a fiber at once, each block with its own NaN-filled shared
+memory, a block barrier per block; the stub card has three SMs and one
+block an SM (`gs_set_occupancy`), at most 1,024 fibers in all, and refuses
+a grid larger than that. A test can run the blocks last to first
+(`gs_set_coop_reverse`), or hold one block back until every other waits
+(`gs_set_coop_lag`), and before each launch the block sums in Bt''s state
+are overwritten with garbage, so a block that reads them before the
+barrier opens shows. A wait at the barrier that never ends aborts.
 
 On the host a float NaN cast to int32 is INT_MIN, in the source as in
 torch's CPU twin (on the card both give 0), so a table row with a NaN run
 carries a negative tile count here; the expand runs on the rows without
 one. Inputs: a seeded screen from the JAX projection in both `tight_cull`
-modes; N over several scan blocks and not a multiple of one (also with
-withheld prefixes over 41 blocks); all rows dead; and
-`synthetic.emission_edge_screen`, whose rows sit on the tables' edges (rect
-heights 0, 8 and 9, det <= 0, a <= 0, cull_qmax <= 0, b = 0, centres on
-tile edges, NaN and inf in mean2d and conic). `scripts/tables_ablate.py`'s
-variants with two and one rows a thread are built too and must compute the
-same tables, and each variant's text edits must match the source. The card
-runs the same checks on the flagship frames and the edge screen
+modes; N under one block's chunk, not a multiple of a chunk, over several
+rounds, and 0; all rows dead; and `synthetic.emission_edge_screen`, whose
+rows sit on the tables' edges (rect heights 0, 8 and 9, det <= 0, a <= 0,
+cull_qmax <= 0, b = 0, centres on tile edges, NaN and inf in mean2d and
+conic). `scripts/tables_ablate.py`'s variants that compute the tables
+(128-thread blocks, 1,024- and 256-row chunks) are built too and must
+compute the same, and each variant's text edits must match the source. The card runs
+the same checks on the flagship frames and the edge screen
 (`chip_smoke.py`).
 """
 
@@ -68,7 +76,9 @@ struct int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
-inline void __nanosleep(unsigned) { gs_wait(GS_RUN); }  // a spin yields
+inline long long gs_spins = 0;  // yields in a wait; a cooperative launch aborts past a limit
+inline bool gs_spun = false;    // the running fiber's last yield was a wait's
+inline void __nanosleep(unsigned) { ++gs_spins; gs_spun = true; gs_wait(GS_RUN); }  // a spin yields
 
 // 64-bit shuffles: a slot array behind one warp barrier, two in turns
 inline unsigned long long gs_slot64[2][1024];
@@ -96,19 +106,133 @@ inline unsigned long long __shfl_sync(unsigned, unsigned long long v, int src)
     return gs_lane64(v, src);
 }
 
-// the shared arrays' places in the stub's NaN-filled shared memory
+// the shared arrays' places in the stub's NaN-filled shared memory (in a
+// cooperative launch, the running block's own)
 constexpr size_t gs_align16(size_t x) { return (x + 15) / 16 * 16; }
-inline char* gs_smem_at(size_t off) { return reinterpret_cast<char*>(gs_host_smem) + off; }
+inline char* gs_smem_base = nullptr;
+inline char* gs_smem_at(size_t off)
+{
+    return (gs_smem_base ? gs_smem_base : reinterpret_cast<char*>(gs_host_smem)) + off;
+}
 
-// the look-back's withheld prefixes: 0 publishes all, k only every k-th block's
+// a look-back's withheld prefixes (St', `tests/test_torch_sort_kernel_host.py`):
+// 0 publishes all, k only every k-th tile's
 inline int gs_withhold = 0;
 inline bool gs_publish_prefix(int blk) { return gs_withhold == 0 || blk % gs_withhold == 0; }
 extern "C" void gs_set_withhold(int k) { gs_withhold = k; }
 """
 
-WITHHOLD = ("if (lane == 0) publish(flag, incl, blk, excl + block_sum, tag | SCAN_PREFIX);",
-            "if (lane == 0 && gs_publish_prefix(blk)) "
-            "publish(flag, incl, blk, excl + block_sum, tag | SCAN_PREFIX);")
+# the stub card's blocks an SM, settable (the loss stub's query answers 0)
+OCCUPANCY = ("inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+             "(int* n, const void*, int, size_t)\n{\n    *n = 0;",
+             "inline int gs_occupancy = 1;\n"
+             "inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor"
+             "(int* n, const void*, int, size_t)\n{\n    *n = gs_occupancy;")
+
+COOP = r"""
+#include <tuple>
+#include <type_traits>
+#include <utility>
+struct int2 { int x, y; };
+inline unsigned atomicExch(unsigned* p, unsigned v) { unsigned o = *p; *p = v; return o; }
+inline unsigned long long __ldcg(const unsigned long long* p) { return *p; }
+extern "C" void gs_set_occupancy(int k) { gs_occupancy = k; }
+
+// a cooperative launch: every thread of every block a fiber at once (the
+// blocks last to first on request), each block its own NaN-filled shared
+// memory; a warp barrier opens when its warp's live fibers wait there, a
+// block barrier when its block's do
+inline int gs_coop_reverse = 0, gs_coop_lag = -1;
+extern "C" void gs_set_coop_reverse(int r) { gs_coop_reverse = r; }
+// block `b` held back: its fibers run only in a pass where every other
+// fiber that ran ended in a wait's yield (or none ran): the others reach
+// the grid barrier first
+extern "C" void gs_set_coop_lag(int b) { gs_coop_lag = b; }
+inline std::vector<char> gs_coop_smem;
+
+template <typename... P>
+cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(P...), dim3 grid, dim3 block,
+                                        void** args, size_t smem, cudaStream_t)
+{
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, block.x, smem);
+    const int blocks = (int)grid.x, threads = (int)(block.x * block.y * block.z);
+    const int n = blocks * threads;
+    if (blocks > GS_HOST_SMS * per_sm || n > 1024 || threads % 32 || smem || grid.y * grid.z != 1)
+        return cudaErrorInvalidValue;  // not resident at once on the stub card
+    auto vals = [&]<size_t... I>(std::index_sequence<I...>) {
+        return std::tuple<std::decay_t<P>...>(*static_cast<std::decay_t<P>*>(args[I])...);
+    }(std::index_sequence_for<P...>{});
+    gridDim = grid;
+    blockDim = block;
+    gs_body = [&] { std::apply(kernel, vals); };
+    const size_t per_block = sizeof gs_host_smem;
+    gs_coop_smem.assign(blocks * per_block, (char)0xff);  // NaN
+    static std::vector<char> stacks;
+    const size_t stack = 64 * 1024;
+    stacks.resize(n * stack);
+    gs_fibers.assign(n, GsFiber{});
+    for (int f = 0; f < n; ++f) {
+        getcontext(&gs_fibers[f].ctx);
+        gs_fibers[f].ctx.uc_stack.ss_sp = stacks.data() + f * stack;
+        gs_fibers[f].ctx.uc_stack.ss_size = stack;
+        gs_fibers[f].ctx.uc_link = &gs_sched;
+        makecontext(&gs_fibers[f].ctx, gs_fiber_main, 0);
+        gs_fibers[f].state = GS_RUN;
+    }
+    gs_spins = 0;
+    for (;;) {
+        bool moved = false, busy = false;
+        for (int k = 0; k <= blocks; ++k) {
+            const int b = k == blocks ? gs_coop_lag : gs_coop_reverse ? blocks - 1 - k : k;
+            if (b < 0 || b >= blocks || (k < blocks && b == gs_coop_lag) || (k == blocks && busy))
+                continue;
+            for (int t = 0; t < threads; ++t) {
+                const int f = b * threads + t;
+                if (gs_fibers[f].state != GS_RUN) continue;
+                gs_tid = f;
+                blockIdx = {(unsigned)b, 0, 0};
+                threadIdx = {(unsigned)t, 0, 0};
+                gs_smem_base = gs_coop_smem.data() + b * per_block;
+                gs_spun = false;
+                swapcontext(&gs_sched, &gs_fibers[f].ctx);
+                busy |= !gs_spun;
+                moved = true;
+            }
+        }
+        if (gs_spins > (1ll << 22)) std::abort();  // a barrier that never opens
+        int live = 0;
+        for (int w = 0; w * 32 < n; ++w) {
+            int wl = 0, at = 0;
+            for (int f = 32 * w; f < 32 * w + 32; ++f) {
+                wl += gs_fibers[f].state != GS_DONE;
+                at += gs_fibers[f].state == GS_WARP;
+            }
+            if (at && at == wl) {
+                for (int f = 32 * w; f < 32 * w + 32; ++f) gs_fibers[f].state = GS_RUN;
+                moved = true;
+            }
+        }
+        for (int b = 0; b < blocks; ++b) {
+            int bl = 0, at = 0;
+            for (int f = b * threads; f < (b + 1) * threads; ++f) {
+                bl += gs_fibers[f].state != GS_DONE;
+                at += gs_fibers[f].state == GS_BLOCK;
+            }
+            live += bl;
+            if (at && at == bl) {
+                for (int f = b * threads; f < (b + 1) * threads; ++f)
+                    if (gs_fibers[f].state == GS_BLOCK) gs_fibers[f].state = GS_RUN;
+                moved = true;
+            }
+        }
+        if (!live) break;
+        if (!moved) std::abort();
+    }
+    gs_smem_base = nullptr;
+    return cudaSuccess;
+}
+"""
 SHARED = re.compile(r"__shared__\s+(?:__align__\(\d+\)\s+)?(?P<type>.+?)\s+"
                     r"(?P<decls>\w+(?:\[[^\]]+\])?(?:\s*,\s*\w+(?:\[[^\]]+\])?)*)\s*;")
 DECL = re.compile(r"(\w+)(?:\[([^\]]+)\])?")
@@ -140,18 +264,20 @@ def host_shared(src: str) -> str:
 
 
 def host_source(src: str) -> str:
-    """binning.cu (or a variant's text) for g++."""
-    assert src.count(WITHHOLD[0]) == 1
-    src = host_shared(src.replace(*WITHHOLD))
+    """binning.cu (or a variant's text) for g++: the shared arrays in the
+    stub's memory, each `<<<...>>>` launch a call of the stub's launcher
+    (K1''s expand and pack); Bt''s cooperative launch goes to `COOP`'s."""
+    src = host_shared(src)
     src, launches = LAUNCH.subn(r"gs_host_launch(\1, \2, \3, \4, \6);", src)
-    assert launches == 3, launches
+    assert launches == 2, launches
+    assert src.count("cudaLaunchCooperativeKernel(") == 1
     assert "__shared__" not in src and "asm" not in src
     return src
 
 
-# the committed source and `scripts/tables_ablate.py`'s variants that still
-# compute the tables (fewer rows a thread: the scan of fewer warp sums)
-HOST_VARIANTS = ("kernel", "rows2", "rows1")
+# the committed source and `scripts/tables_ablate.py`'s variants that
+# compute the tables
+HOST_VARIANTS = ("kernel", "threads_128", "chunk_1024", "chunk_256")
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +286,10 @@ def host_libs(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ on this host")
     tmp = tmp_path_factory.mktemp("binning_host")
-    (tmp / "cuda_runtime.h").write_text(STUB + f"#define GS_HOST_SMS {HOST_SMS}\n" + EXTRA
-                                        + EXTRA64)
+    assert STUB.count(OCCUPANCY[0]) == 1
+    (tmp / "cuda_runtime.h").write_text(STUB.replace(*OCCUPANCY)
+                                        + f"#define GS_HOST_SMS {HOST_SMS}\n" + EXTRA
+                                        + EXTRA64 + COOP)
     nan = int(torch.tensor([float("nan")]).to(torch.bfloat16).view(torch.int16)) & 0xFFFF
     assert BF16.count(BF16_NAN) == 1
     (tmp / "cuda_bf16.h").write_text(BF16.replace(BF16_NAN, f"return {{(unsigned short){nan}}};"))
@@ -180,8 +308,9 @@ def host_libs(tmp_path_factory):
         log, _ = proc.communicate()
         assert proc.returncode == 0, log.decode(errors="replace")[-4000:]
         lib = _kernels.open_library(out, "binning")
-        lib.gs_set_withhold.argtypes = [ctypes.c_int]
-        lib.gs_set_withhold.restype = None
+        for fn in ("gs_set_occupancy", "gs_set_coop_reverse", "gs_set_coop_lag"):
+            getattr(lib, fn).argtypes = [ctypes.c_int]
+            getattr(lib, fn).restype = None
         libs[name] = lib
     return libs
 
@@ -197,26 +326,40 @@ def on_host(host_libs, monkeypatch):
         for c in [c for c in vars(w) if c.startswith("launches")]:
             monkeypatch.setattr(w, c, getattr(w, c))
     yield host_libs["kernel"]
-    host_libs["kernel"].gs_set_withhold(0)
+    for lib in host_libs.values():
+        lib.gs_set_coop_reverse(0)
+        lib.gs_set_coop_lag(-1)
 
 
 def rows(screen, keep):
     return ScreenGaussians(**{f: getattr(screen, f)[keep] for f in screen.__dataclass_fields__})
 
 
+GARBAGE = 0x5A5A5A5A5A5A5A5A  # written over the block sums before each launch
+
+
 def check_tables(screen, tight, reps=2):
     """Bt' on the host against the twin, `reps` launches in a row (the
-    scan state carries over; its ticket is 0 again after each)."""
+    state carries over), its block sums overwritten with garbage before
+    each; after each the barrier's count of arrivals is 0 again and its
+    last number the launch's last."""
     want = tb._emission_tables_torch(screen, 16, tight)
+    n = screen.rect_min.shape[0]
+    cpu = torch.device("cpu")
     for _ in range(reps):
+        entry = tb._table_states.get(cpu)
+        if entry is not None:
+            entry[0][tb._TABLE_HEAD:] = GARBAGE
         before = tb.emission_tables.launches
         got = tb.emission_tables(screen, 16, tight)
-        assert tb.emission_tables.launches == before + (screen.rect_min.shape[0] > 0)
+        assert tb.emission_tables.launches == before + (n > 0)
         for name, a, b in zip(("rect", "cum_excl", "trimmed", "t_lo", "cum_run"), got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), name
         assert got[5] == want[5]
-        scan = tb._table_scans.get(torch.device("cpu"))
-        assert scan is None or int(scan[-1]) == 0, "the ticket is not back at 0"
+        if n:
+            state, number = tb._table_states[cpu]
+            assert int(state[0]) == 0, "the barrier's count of arrivals is not back at 0"
+            assert int(state[1]) == number - 1, "the last barrier's number"
     return got
 
 
@@ -240,31 +383,63 @@ def check_k1(screen, tables, tight, gx=GRID[0], num_tiles=GRID[0] * GRID[1]):
     return total
 
 
+def edge_rows(n, seed):
+    return emission_edge_screen(n=n, device="cpu", finite=True, seed=seed)[0]
+
+
 @pytest.mark.parametrize("tight", [True, False])
 def test_tables_on_the_host_equal_the_twin_on_a_seeded_screen(on_host, tight):
-    _, ts, gx, gy = screen_pair(3, 1500, tight)  # 2 scan blocks, the last one part full
+    _, ts, gx, gy = screen_pair(3, 1500, tight)  # 3 blocks of 512 rows, the last one part full
+    assert tb.table_layout(1500)[:3] == (3, 512, 1)
     tables = check_tables(ts, tight)
     assert tables[5] > 1000 and bool(tables[2].any()) == tight
     check_k1(ts, tables, tight, gx, gx * gy)
 
 
 def test_tables_over_several_blocks(on_host):
-    """N = 3 x 1024 + 77: four scan blocks, the last one part full."""
-    screen, _ = emission_edge_screen(n=3 * tb.TABLE_TILE + 77, device="cpu", finite=True, seed=9)
+    """N = 3 x 1024 + 77: three blocks of 1,056 rows, the last one part
+    full, and the expand on their tables."""
+    n = 3 * 1024 + 77
+    assert tb.table_layout(n)[:3] == (3, 1056, 1)
+    screen = edge_rows(n, 9)
     tables = check_tables(screen, True)
     assert bool((tables[0][:, 3] >= 0).all())
     check_k1(screen, tables, True)
 
 
-def test_tables_with_withheld_prefixes(on_host):
-    """41 scan blocks (N = 40 x 1024 + 77); with only every 37th block's
-    prefix published, a look-back sums up to 36 aggregates, past one warp's
-    window of 32."""
-    screen, _ = emission_edge_screen(n=40 * tb.TABLE_TILE + 77, device="cpu", finite=True,
-                                     seed=8)
-    for k in (0, 37):
-        on_host.gs_set_withhold(k)
-        check_tables(screen, True)
+@pytest.mark.parametrize("n,layout", [(20, (1, 32, 1)), (100, (3, 64, 1)), (4 * 8192 + 77, (3, 8192, 2))])
+def test_tables_at_the_chunks_edges(on_host, n, layout):
+    """N under one block's chunk (one block, a partial warp); N that leaves
+    the last block part full and one block empty; N over one round of three
+    8,192-row chunks (a second round, a barrier each)."""
+    assert tb.table_layout(n)[:3] == layout
+    screen = edge_rows(n, 9)
+    tables = check_tables(screen, True)
+    assert bool((tables[0][:, 3] >= 0).all())
+    if n < 1000:
+        check_k1(screen, tables, True)
+
+
+@pytest.mark.parametrize("order", ["last_to_first", "block_0_held_back"])
+def test_tables_in_another_block_order(on_host, order):
+    """The fibers run the blocks last to first; or block 0 (whose sum every
+    other block adds) runs only while the others wait, so they reach the
+    grid barrier first and must wait there for it."""
+    screen = edge_rows(2 * 1024 + 600, 8)
+    if order == "last_to_first":
+        on_host.gs_set_coop_reverse(1)
+    else:
+        on_host.gs_set_coop_lag(0)
+    check_tables(screen, True)
+    check_tables(screen, False)
+
+
+def test_tables_of_no_rows(on_host):
+    screen = rows(edge_rows(50, 3), torch.zeros(50, dtype=torch.bool))
+    for tight in (True, False):
+        got = tb.emission_tables(screen, 16, tight)
+        assert got[5] == 0 and all(t.shape[0] == 0 for t in got[:5])
+        assert int(tb.emission_tables(screen, 16, tight, read_total=False)[5]) == 0
 
 
 def test_tables_with_every_row_dead(on_host):
@@ -308,6 +483,21 @@ def test_cum_excl_and_total_equal_the_jax_prefix_sum(on_host):
     assert int(jp.overflow) == 0 and int(jp.num_instances) == got[5]
 
 
+def test_tables_of_columns_off_a_16_byte_boundary(on_host):
+    """The kernel reads the int2 and float2 columns as 8-byte loads: the
+    wrapper copies a contiguous column 4 bytes off a 16-byte boundary (off
+    8 bytes too), such as a one-row slice of the mesh's gathered columns,
+    and the tables are the twin's."""
+    screen = edge_rows(100, 5)
+    for name in ("rect_min", "rect_max", "conic", "mean2d", "cull_qmax", "tiles_touched"):
+        col = getattr(screen, name)
+        off = torch.cat([col.new_zeros(1), col.reshape(-1)])[1:].view(col.shape)
+        assert off.data_ptr() % 16 == 4 and off.is_contiguous()
+        moved = ScreenGaussians(**{**{f: getattr(screen, f) for f in screen.__dataclass_fields__},
+                                   name: off})
+        check_tables(moved, True, reps=1)
+
+
 def test_emission_tables_refuses_cpu_tensors(monkeypatch):
     screen, _ = emission_edge_screen(n=300, device="cpu", finite=True)
     monkeypatch.setattr(tb.emission_tables, "launches", 0)
@@ -321,14 +511,35 @@ def test_emission_tables_refuses_cpu_tensors(monkeypatch):
     assert tb.emission_tables.launches == 0
 
 
-@pytest.mark.parametrize("variant", ["rows2", "rows1"])
-def test_fewer_rows_a_thread_on_the_host(on_host, host_libs, monkeypatch, variant):
-    """`tables_ablate.py`'s variants with two and one rows a thread (scan
-    blocks of 512 and 256: 16 and 8 warp sums) compute the same tables."""
+@pytest.mark.parametrize("variant", ["threads_128", "chunk_1024", "chunk_256"])
+def test_tables_variants_on_the_host(on_host, host_libs, monkeypatch, variant):
+    """`tables_ablate.py`'s variants that compute the tables: blocks of 128
+    threads (four warps' sums a step), and chunks of at most 1,024 or 256
+    rows (here three or nine rounds, a barrier each)."""
     monkeypatch.setattr(_kernels, "load", lambda name: host_libs[variant])
-    tb._table_scan(torch.device("cpu"), -(-(3 * tb.TABLE_TILE + 77) // 256))
-    screen, _ = emission_edge_screen(n=3 * tb.TABLE_TILE + 77, device="cpu", finite=True, seed=9)
-    check_tables(screen, True)
+    n = 2 * 3 * 1024 + 300
+    want = {"threads_128": (3, 2176, 1), "chunk_1024": (3, 1024, 3),
+            "chunk_256": (3, 256, 9)}[variant]
+    assert tb.table_layout(n)[:3] == want
+    host_libs[variant].gs_set_coop_reverse(1)
+    check_tables(edge_rows(n, 9), True)
+    check_tables(edge_rows(n, 4), False, reps=1)
+
+
+def test_a_grid_too_large_to_be_resident_is_refused(on_host, host_libs, monkeypatch):
+    """The cooperative launch refuses a grid the card cannot hold at once
+    (here the layout's, with the stub's blocks an SM lowered after the
+    layout was cached), and the wrapper raises: no block waits forever."""
+    lib = host_libs["chunk_1024"]
+    monkeypatch.setattr(_kernels, "load", lambda name: lib)
+    n = 3 * 1024 + 5
+    assert tb.table_layout(n)[0] == 3
+    lib.gs_set_occupancy(0)
+    try:
+        with pytest.raises(RuntimeError, match="emission_tables"):
+            tb.emission_tables(edge_rows(n, 1), 16, True)
+    finally:
+        lib.gs_set_occupancy(1)
 
 
 @pytest.mark.parametrize("variant", sorted(tables_ablate.VARIANTS))

@@ -28,7 +28,11 @@ expand on the JAX projection's seeded screen. Each sort runs twice in a
 row, so its counters must be 0 again after each launch; the count
 kernel's tiles over CAP and largest tile are checked against the keys.
 St' cases: its look-back over many tiles (with all but every k-th tile's
-inclusive counts withheld by a host edit) and its 11-bit digits. And the
+inclusive counts withheld by a host edit) and its 11-bit digits; keys too
+wide for St'''s tile counters (47 and 62 bits) at a few thousand keys,
+which take St' by their route; and the binning of a 4096x2160 frame
+(34,560 tiles, the twins' tables and the host St') against the JAX
+package's `bin_gaussians`. And the
 expand's keys meet the precondition (bit 31 clear, the live bits under
 2^key_bits) on that screen and on `synthetic.emission_edge_screen`. The
 card runs the sort on the flagship frames and adversarial keys
@@ -43,12 +47,19 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from gsplat_tpu.core.types import make_render_settings
+from gsplat_tpu.ops import binning as jb
+from gsplat_tpu.ops.projection import preprocess
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.ops import binning as tb
 from gsplat_tpu_torch.ops import sort as so
 from gsplat_tpu_torch.scripts import ablation, sort_ablate
 from gsplat_tpu_torch.synthetic import emission_edge_screen
-from tests.test_torch_binning import screen_pair
+from tests.oracle.reference_math import make_test_scene
+from tests.test_forward_vs_oracle import scene_to_inputs
+from tests.test_torch_binning import screen_pair, to_port
 from tests.test_torch_emission_tables_host import EXTRA64, rows
 from tests.test_torch_loss_kernel_host import STUB
 from tests.test_torch_skeleton_kernel_host import EXTRA, HOST_SMS, LAUNCH
@@ -385,13 +396,70 @@ def check_onesweep(lib, keys, gid, key_bits):
     assert not bool(words[2 * fixed:2 * fixed + 2].any()), "done counter or ticket not 0"
 
 
+@pytest.mark.parametrize("key_bits,tiles", [(47, 256 * 135), (62, 2**31)])
+def test_wide_keys_take_st_prime_at_any_count(on_host, key_bits, tiles):
+    """Keys too wide for St'''s tile counters (47 bits: 4096x2160's 34,560
+    tiles; 62 bits: tile ids up to 2^31 - 1), 3,000 of them (far under
+    ONESWEEP_MIN_KEYS): `sort_instances` takes St' unforced, bit for bit
+    the twin, and leaves St'''s state untouched. St'' itself refuses them."""
+    assert so.sort_key_bits(256 * 135) == 47
+    k = 3000
+    assert k <= so.ONESWEEP_MIN_KEYS
+    assert (so.route(k, 47), so.route(k, 46)) == ("onesweep", "segmented")
+    assert so.route(so.ONESWEEP_MIN_KEYS + 1, 46) == "onesweep"
+    rng = np.random.default_rng(key_bits)
+    ids = np.append(rng.integers(1 << 15, tiles, 60), tiles - 1)
+    keys, gid = frame_keys(rng, k, key_bits, ids, distinct_depths=500)
+    assert int(so.live_bits(keys).max()) >= 2 ** (key_bits - 1)
+    states = dict(so._states)
+    want = so.sort_instances_torch(keys, gid, key_bits)
+    for _ in range(2):
+        got = so.sort_instances(keys, gid, key_bits)
+        assert so.sort_instances.last_route == "onesweep"
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert so._states == states
+    with sort_ablate.on_route("segmented"):
+        assert so.route(k, key_bits) == "onesweep"
+    with pytest.raises(ValueError, match="key_bits"):
+        so.sort_layout(k, key_bits)
+    with pytest.raises(ValueError, match="key_bits"):
+        so._sort_segmented(keys, gid, key_bits, torch.empty_like(keys), torch.empty_like(gid))
+
+
+def test_a_4096x2160_grid_bins_as_the_jax_package_does(on_host):
+    """The port's binning on a 4096x2160 grid (34,560 tiles, key_bits 47),
+    its sort the host build of St' (taken by its route), against the JAX
+    package's `bin_gaussians` (its jnp route) on the same screen: the
+    instance order and the per-tile ranges equal, at JAX overflow 0."""
+    sc = make_test_scene(np.random.default_rng(21), n=300, width=4096, height=2160,
+                         sh_degree=2)
+    sc["log_scaling"] -= np.float32(np.log(30.0))  # splats of a few tiles at this size
+    params, camera, alive = scene_to_inputs(sc)
+    settings = make_render_settings(sh_degree=2, instance_capacity=1 << 16, tight_cull=True)
+    gx, gy = (camera.width + 15) // 16, (camera.height + 15) // 16
+    assert (gx, gy) == (256, 135) and so.sort_key_bits(gx * gy) == 47
+    js = jax.jit(lambda p, a: preprocess(p, a, camera, settings, gx, gy))(params, alive)
+    ts = to_port(js)
+    jbins = jax.jit(lambda s: jb.bin_gaussians(s, gx, gy, 1 << 16, 16, tight_cull=True))(js)
+    k = int(jbins.num_instances)
+    assert int(jbins.overflow) == 0 and k > 1000
+    got = tb._pack(ts, gx, gy, 16, True, "float32", tb._emission_tables_torch,
+                   tb._expand_instances_torch, so.sort_instances, tb._pack_instances_torch)
+    assert so.sort_instances.last_route == "onesweep" and got.num_instances == k
+    for f in ("tile_start", "tile_end"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(jbins, f)))
+    for f in ("tile_id", "gauss_id"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(jbins, f))[:k])
+
+
 def test_route_by_key_count(on_host, monkeypatch):
     """`sort_instances` takes St' above ONESWEEP_MIN_KEYS keys and St'' up
     to it; both give the twin's result."""
     monkeypatch.setattr(so, "ONESWEEP_MIN_KEYS", 3000)
     monkeypatch.setattr(so, "_states", {})
     monkeypatch.setattr(so, "_onesweep_states", {})
-    assert (so.route(3001), so.route(3000)) == ("onesweep", "segmented")
+    assert (so.route(3001, 44), so.route(3000, 44)) == ("onesweep", "segmented")
     rng = np.random.default_rng(15)
     keys, gid = frame_keys(rng, 3001, 44, 40, distinct_depths=100)
     got = so.sort_instances(keys, gid, 44)
@@ -465,11 +533,13 @@ def test_sort_instances_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         so.sort_instances(keys, gid, 44)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    # key_bits over 46: more tile ids than the count's shared memory holds
+    # key_bits over 62: wider than St' sorts (47 ... 62 take St' at any K)
     for bad in ((keys.to(torch.int32), gid, 44), (keys, gid.to(torch.int64), 44),
-                (keys, gid[:9], 44), (keys, gid, 0), (keys, gid, 47), (keys, gid, 63)):
+                (keys, gid[:9], 44), (keys, gid, 0), (keys, gid, 63)):
         with pytest.raises(ValueError, match="sort_instances"):
             so.sort_instances(*bad)
+    for taken in (1, 46, 47, 62):
+        so._check(keys, gid, taken)
     with pytest.raises(ValueError, match="aligned"):
         so.sort_instances(torch.zeros(11, dtype=torch.int64)[1:], gid, 44)
     big = 2**31
