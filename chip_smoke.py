@@ -80,8 +80,19 @@ JSON line per phase:
 10. the render path at full width: 1,048,576 gaussians, SH 3, 1920x1080,
    float32 packets, through `render(..., device="cuda")` — 5 warm-up and 20
    timed frames with the launch counts reset just before and read just
-   after (Bt', K1' expand, St'', K1' pack, K2' once per frame) and the
-   kernels a frame launches (`kernels_per_frame`, the profile's); a
+   after (Bt', K1' expand, St'', K1' pack, K2', Cf' once per frame) and the
+   kernels a frame launches (`kernels_per_frame`, the profile's, beside its
+   `launch_census`: host launches and device events per frame matched by
+   correlation id, and any of either without the other, by name); the
+   frame's render, invdepth and final_t bit for bit the plain composite of
+   its K2' output that `render` ran before the composite kernels; Cf' and
+   Cb' (`composite_fwd`, `composite_bwd`) bit for bit (int32 views) their
+   twins `composite_torch` and `composite_bwd_torch` on that output at bg
+   (0.25, 0.5, 0.75) with seeded cotangents, without and with a seeded
+   exposure (Cb' also with the exposure's gradient, its counter of
+   finished blocks zero again after each launch), Cf' timed beside its
+   twin and byte bound (CUDA events back to back and queued behind a hold
+   of the stream), without and with exposure; a
    per-stage breakdown, each stage's device ms (CUDA events) beside its host
    ms (the host clock from its first launch call to its last call's return)
    (`binning_tables`: Bt' and the read of K, the frame's one host sync;
@@ -128,9 +139,12 @@ JSON line per phase:
 12. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
    the float32 pack once per frame, K5' once, K2' never), 10 sorted and 10
-   OIT frames in turns, stage split, busy share, peak memory, K5'
-   `torch.equal` to its twin on the whole frame and its row (with its
-   walked pairs and culled share);
+   OIT frames in turns, stage split (the composite through Cf'), busy
+   share, peak memory, K5' `torch.equal` to its twin on the whole frame and
+   its row (with its walked pairs and culled share); the frame's outputs
+   bit for bit the plain composite of K5''s sums (the OIT quotient, the
+   background, the crops, the clamp), Cf' and Cb' bit for bit their twins
+   there as on the sorted frame, Cf' timed;
 13. bf16 packets (`bf16_packets`): K1''s bf16 pack bitwise against its twin
    at 640x480, tight_cull on and off; 3 full-width sorted frames with bf16
    packets (counts read around them), St'' bit for bit its twin on that
@@ -140,11 +154,20 @@ JSON line per phase:
    unperturbed render through `make_train_step` with hybrid packets — 5
    warm-up and 20 timed steps with the counts reset just before and read
    just after (the projection forward and backward, Bt', K1', St'', K2', K3', K4',
-   the loss forward and backward and Adam once per step; every path below also projects once per frame, step,
+   the loss forward and backward, Cf', Cb' and Adam once per step; every path below also projects once per frame, step,
    evaluation view, viewer request and mesh rank-step, and launches Bt'
    and St'' once for each K1' expand), the loss falling,
    no NaN; a stage split (the projection's forward and backward kernels
-   apart), the busy share and kernels per step, peak memory; the
+   apart, `composite` and `composite_backward`: Cf' and Cb'), the busy
+   share and kernels per step, peak memory; Cb' on the step's own
+   cotangents (d render from the loss, d invdepth from the depth term at
+   weight 0, no d final_t): its output the cotangent K3' received in that
+   step, bit for bit its twin there and at bg (0.25, 0.5, 0.75) with and
+   without exposure, and against autograd of the plain composite at the
+   step's bg and at (0.25, 0.5, 0.75): columns 0-3 (colour and inverse
+   depth) bit for bit, columns 5-7 zero, final T (summed in another order)
+   within 1e-6 of the sum of its terms' magnitudes per element
+   (`cotangent_scale`); timed beside its twin and byte bound; the
    projection kernels on the step's own inputs (2,097,152 rows, half
    dead, the offset, the blend's cotangents) against their twins and
    autograd, and timed; K3', K4', Bt' (the train frame's screen, bit for
@@ -195,7 +218,19 @@ JSON line per phase:
 18. the OIT train path (`oit_train_path`): as 14 with `blend_mode="oit"`
    (K1', the hybrid pack, K5', K6' and K4' once per step, K2' and K3'
    never), and K6' (and the step's K5' output) `torch.equal` to its twin
-   on the whole train frame, its walked pairs and culled share;
+   on the whole train frame, its walked pairs and culled share; Cb' as in
+   14, its cotangent against autograd of the plain composite (the OIT
+   quotient's) within 1e-6 of `cotangent_scale` per element;
+   then `exposure_depth_step`: the sorted flagship step with
+   `use_exposure=True` and the depth term at weight 0.1 against a non-zero
+   inverse-depth target, 2 + 10 steps with the counts reset around them
+   (every train kernel once a step), the exposure moved, its median ms and
+   kernels per step; Cb' with the exposure's gradient on that step's
+   cotangents bit for bit its twin, its cotangent and d exposure against
+   autograd of the twin (1e-6 of `cotangent_scale` per element; d exposure
+   within 1e-5 of its largest entry), timed; then `composite`: the rows
+   of Cf' and Cb' on every frame, the frames' and steps' composite stages
+   and kernels a frame and a step;
 19. the train CLI (30 iterations, densification forced early) and the render
    CLI on the model it saved, sorted (`train_cli`) and with `--blend_mode
    oit` (`train_cli_oit`);
@@ -316,7 +351,9 @@ JSON line per phase:
    build facts and the subnormal outcomes; every path kernel its device
    time from its path's profile, `profiled_ms`, which no slow host
    stretches, also not under its bound; Bt' and St'' their train-frame
-   time); Bt', St'' and K1' to K6' count on the render
+   time; Cf' its OIT frame and its time with exposure, Cb' its OIT train
+   frame and the exposure step's time with the exposure's gradient);
+   Bt', St'', K1' to K6', Cf' and Cb' count on the render
    and train paths, and the probe kernels P1' (`skel_fwd`), P2' (`skel_bwd`), the
    twelve P3' variants (`op_<variant>`) and P4' (`blend_mix_<dtype>`, and
    `_512` at 512 rows) on the probe path, with their bounds on one SM for
@@ -325,9 +362,10 @@ JSON line per phase:
    beside them, and those of the checkpoint runs A and B, the direct
    `evaluate_test`, the two train CLI runs of `train_cli_ckpt`, the
    viewer, the quality run, each mesh's checked step summed over its ranks
-   (`multi_device_<G>x<T>`), `nccl_1x1` and the mesh checkpoint's resumed
-   run (`train_cli_mesh_resumed`). The render and train paths launch no
-   probe kernel.
+   (`multi_device_<G>x<T>`; a rank composes its band in plain torch, so
+   no Cf' or Cb' there), `nccl_1x1`, the mesh checkpoint's resumed
+   run (`train_cli_mesh_resumed`) and the exposure step. The render and
+   train paths launch no probe kernel.
 
 Then the card's name and power limit on a line of their own, and last the
 line `{"ok": true, "device": {...}}`. Every failed check raises, so the
@@ -438,7 +476,8 @@ PATH_KERNEL_FUNCS = ("emission_tables_kernel", "expand_instances_kernel", "sort_
                      "pack_instances_kernel",
                      "blend_fwd_kernel", "blend_bwd_kernel", "reduce_by_gid_kernel",
                      "oit_fwd_kernel", "oit_bwd_kernel", "project_fwd_kernel", "project_bwd_kernel",
-                     "adam_rows_kernel", "loss_fwd_kernel", "loss_bwd_kernel")
+                     "adam_rows_kernel", "loss_fwd_kernel", "loss_bwd_kernel",
+                     "composite_fwd_kernel", "composite_bwd_kernel")
 
 
 def device_profile(frame, frames=3, top=10):
@@ -455,17 +494,19 @@ def device_profile(frame, frames=3, top=10):
     copies per frame."""
     from torch.autograd import DeviceType
 
-    from gsplat_tpu_torch.profiling import busy_span_us, profile_calls
+    from gsplat_tpu_torch.profiling import busy_span_us, launch_census, profile_calls, trace_events
 
     prof = profile_calls(frame, frames)
     # device-side events only: the CPU-side op rows repeat their kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3 / frames, e.count / frames)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
-    busy, span = busy_span_us(prof)
+    events = trace_events(prof)
+    busy, span = busy_span_us(prof, events)
     return {
         "device_ms_per_frame": sum(r[1] for r in rows),
         "kernels_per_frame": sum(r[2] for r in rows),
+        "launch_census": launch_census(events, frames),
         "profiled_frame_ms": span / 1e3 / frames,
         "busy_ms_per_frame": busy / 1e3 / frames,
         "busy_share": busy / span,
@@ -480,6 +521,7 @@ def device_profile(frame, frames=3, top=10):
 def all_kernels():
     """The wrappers whose launches the script counts, by kernel row name."""
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
@@ -488,6 +530,7 @@ def all_kernels():
     from gsplat_tpu_torch.train import losses, optim
 
     return {"project_fwd": pj.project_fwd, "project_bwd": pj.project_bwd,
+            "composite_fwd": cp.composite_fwd, "composite_bwd": cp.composite_bwd,
             "adam_rows": optim.adam_rows, "loss_fwd": losses.loss_fwd, "loss_bwd": losses.loss_bwd,
             "emission_tables": tb.emission_tables,
             "expand_instances": tb.expand_instances, "sort_instances": so.sort_instances,
@@ -532,20 +575,24 @@ def read_counts():
 
 
 # the kernels each path launches once per frame or step: every path
-# projects (the projection forward, and its backward in training) and bins
-# (Bt', K1''s expand and St'', then a pack); serving
-# packs float32 packets and has no backward; training packs hybrid ones and
-# runs the loss forward and backward and Adam; the OIT paths blend with K5'
-# (and K6') in place of K2' (and K3')
+# projects (the projection forward, and its backward in training), bins
+# (Bt', K1''s expand and St'', then a pack) and composes (Cf', and Cb' in
+# training); serving packs float32 packets and has no backward; training
+# packs hybrid ones and runs the loss forward and backward and Adam; the
+# OIT paths blend with K5' (and K6') in place of K2' (and K3'); a mesh
+# rank composes its band in plain torch (`parallel/pipeline.py`)
 STEP_KERNELS = ("loss_fwd", "loss_bwd", "adam_rows")
 BIN_KERNELS = ("emission_tables", "expand_instances", "sort_instances")
-RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "blend_fwd")
-TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "blend_fwd",
-                 "blend_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
-OIT_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "oit_fwd")
+RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "blend_fwd", "composite_fwd")
+MESH_TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "blend_fwd",
+                      "blend_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
+TRAIN_KERNELS = (*MESH_TRAIN_KERNELS, "composite_fwd", "composite_bwd")
+OIT_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances", "oit_fwd", "composite_fwd")
 OIT_TRAIN_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_hybrid", "oit_fwd",
-                     "oit_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS)
-BF16_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_bf16", "blend_fwd")
+                     "oit_bwd", "reduce_by_gid", "project_bwd", *STEP_KERNELS,
+                     "composite_fwd", "composite_bwd")
+BF16_RENDER_KERNELS = ("project_fwd", *BIN_KERNELS, "pack_instances_bf16", "blend_fwd",
+                       "composite_fwd")
 
 
 def check_counts(counts, path_kernels, n, what):
@@ -828,6 +875,177 @@ def screen_of(scene, settings, device):
 
 def bitwise_equal(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# the composite kernels Cf' and Cb' replace no Pallas kernel: the JAX
+# package's composite is one XLA fusion
+COMPOSITE_REPLACES = ("gsplat_tpu/render.py:113-127 background, tiles_to_image, exposure, "
+                      "clip + gsplat_tpu/ops/rasterize_pallas.py:1317 OIT quotient "
+                      "(XLA fusion; no Pallas kernel)")
+COMPOSITE_BG = (0.25, 0.5, 0.75)  # the composite checks' background
+# Cb''s cotangent against autograd, where the two sum in other orders: per
+# element within COT_REL of the sum of the magnitudes of the terms summed
+# (`cotangent_scale`; 1e-6 is ~8 float32 ulps of it)
+COT_REL = 1e-6
+DEXP_REL = 1e-5  # d exposure against autograd, of its largest entry
+GRAD_NAMES = ("d_render", "d_invdepth", "d_final_t")
+
+
+def composite_exposure(device):
+    """A seeded exposure near the identity."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    return (1.1 * torch.eye(3, 4, device=device)
+            + 0.1 * torch.rand((3, 4), generator=gen, device=device) - 0.05)
+
+
+def seeded_grads(h, w, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device)
+                 for shape in ((h, w, 3), (h, w), (h, w)))
+
+
+def composite_bound(h, w, grads=(), num_tiles=0, exposure_grad=False):
+    """Cf' (no `grads`): each crop pixel's 32-byte row read, 20 bytes
+    written. Cb': the rows and the present incoming gradients read, the
+    padded (T, 256, 8) cotangent written (and the per-tile exposure
+    partials written and read)."""
+    if not num_tiles:
+        return bound(h * w * (32 + 20))
+    present = sum(12 if g.dim() == 3 else 4 for g in grads if g is not None)
+    return bound(h * w * (32 + present) + num_tiles * 256 * 32
+                 + (num_tiles * 12 * 8 if exposure_grad else 0))
+
+
+def composite_check(what, raw, mode, gx, gy, w, h, grads):
+    """Cf' and Cb' against their twins bit for bit (int32 views) on one
+    frame's blend output at COMPOSITE_BG, without and with exposure (Cb'
+    also with the exposure's gradient, its counter of finished blocks zero
+    again after each launch)."""
+    from gsplat_tpu_torch.ops import composite as cp
+
+    bg = torch.tensor(COMPOSITE_BG, device=raw.device)
+    cases = []
+    for exposure in (None, composite_exposure(raw.device)):
+        args = (raw, mode, bg, exposure, gx, gy, 16, w, h)
+        fwd_equal = all(bitwise_equal(a, b) for a, b in zip(cp.composite_fwd(*args),
+                                                            cp.composite_torch(*args)))
+        check(fwd_equal, f"Cf' on the {what} ({mode}, exposure {exposure is not None}): "
+              "not bit for bit its twin")
+        for want in (False, True) if exposure is not None else (False,):
+            cot, dexp = cp.composite_bwd(*args, *grads, want_exposure=want)
+            cot_t, dexp_t = cp.composite_bwd_torch(*args, *grads, want_exposure=want)
+            equal = bitwise_equal(cot, cot_t) and (dexp is None) == (dexp_t is None) and (
+                dexp is None or bitwise_equal(dexp, dexp_t))
+            check(equal and int(cp._ticket(raw.device)) == 0,
+                  f"Cb' on the {what} ({mode}, exposure {exposure is not None}, its gradient "
+                  f"{want}): not bit for bit its twin, or its ticket not back at 0")
+            cases.append({"mode": mode, "exposure": exposure is not None,
+                          "exposure_grad": want, "bitwise_equal": True})
+    return {"frame": what, "size": f"{w}x{h}", "bg": COMPOSITE_BG,
+            "grads": [n for n, g in zip(GRAD_NAMES, grads) if g is not None], "cases": cases}
+
+
+def cotangent_scale(raw, mode, bg, exposure, gx, gy, w, h, grads):
+    """Per element of Cb''s (T, 256, 8) cotangent, in float64, the sum of
+    the magnitudes of the terms each value sums (a product's factors'
+    magnitudes multiplied): what a sum in another order may move it by,
+    in ulps. dc_c sums |g_d E[c,d]| (|g_c| without exposure); dw sums
+    |dc_c N_c| and |d inv N3|; dD scales dw's by |(1 - T) / D' / D'|; dT and
+    the sorted final T sum the background's |dc_c bg_c|, |dw / D'| (OIT)
+    and |d final_t|."""
+    from gsplat_tpu_torch.ops import composite as cp
+    from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
+
+    f = raw.double()
+    b = bg.double().abs()
+    color, _, _ = cp._colour(raw, mode == "oit", bg)
+    img = tiles_to_image(color, gx, gy, 16, w, h)
+    pre = img if exposure is None else cp._expose(img, exposure)
+    g = (torch.zeros_like(img) if grads[0] is None
+         else torch.where((pre >= 0.0) & (pre <= 1.0), grads[0], 0.0)).double().abs()
+    dc = g if exposure is None else g @ exposure[:3, :3].double().abs().T
+    zeros = torch.zeros((h, w), dtype=torch.float64, device=raw.device)
+    dinv, dft = (zeros if t is None else t.double().abs() for t in grads[1:])
+    dc, dinv, dft = (cp.image_to_tiles(t, gx, gy) for t in (dc, dinv, dft))
+    bg_term = (dc * b).sum(-1)
+    scale = torch.zeros(f.shape, dtype=torch.float64, device=raw.device)
+    if mode == "oit":
+        denom = torch.clamp(f[..., 4], min=float(np.float32(1e-8)))
+        one_m = 1.0 - f[..., 5]
+        wq = (one_m / denom).abs()
+        dw = (dc * f[..., 0:3].abs()).sum(-1) + dinv * f[..., 3].abs()
+        scale[..., 0:3] = dc * wq[..., None]
+        scale[..., 3] = dinv * wq
+        scale[..., 4] = dw * (one_m / denom / denom).abs()
+        scale[..., 5] = bg_term + dw / denom + dft
+    else:
+        scale[..., 0:3] = dc
+        scale[..., 3] = dinv
+        scale[..., 4] = bg_term + dft
+    return scale
+
+
+def composite_vs_autograd(raw, mode, bg, exposure, gx, gy, w, h, grads):
+    """Cb''s cotangent (and d exposure) against autograd of the twin's
+    torch operations, which without exposure are `render`'s plain composite
+    before the kernels: sorted without exposure columns 0-3 bit for bit and
+    5-7 zero; every value within COT_REL of `cotangent_scale`; d exposure
+    within DEXP_REL of its largest entry."""
+    from gsplat_tpu_torch.ops import composite as cp
+
+    cot, dexp = cp.composite_bwd(raw, mode, bg, exposure, gx, gy, 16, w, h, *grads,
+                                 want_exposure=exposure is not None)
+    leaf = raw.detach().clone().requires_grad_(True)
+    lexp = None if exposure is None else exposure.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        outs = cp.composite_torch(leaf, mode, bg, lexp, gx, gy, 16, w, h)
+        sel = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        ag = torch.autograd.grad([o for o, _ in sel], [leaf] + ([lexp] if lexp is not None else []),
+                                 [g for _, g in sel])
+    diff = (cot - ag[0]).abs().double()
+    scale = cotangent_scale(raw, mode, bg, exposure, gx, gy, w, h, grads)
+    res = {"mode": mode, "exposure": exposure is not None,
+           "cot_max_abs_err": float(diff.max()),
+           "cot_max_err_over_scale": float((diff / scale.clamp(min=1e-300)).max()),
+           "cot_bitwise_columns": [c for c in range(8)
+                                   if bitwise_equal(cot[..., c].contiguous(),
+                                                    ag[0][..., c].contiguous())]}
+    ok = bool((diff <= COT_REL * scale).all())
+    if mode == "sorted" and exposure is None:
+        ok = ok and set(res["cot_bitwise_columns"]) >= {0, 1, 2, 3, 5, 6, 7}
+        ok = ok and bool((cot[..., 5:] == 0).all())
+    if exposure is not None:
+        res["d_exposure_max_abs_err"] = float((dexp - ag[1]).abs().max())
+        res["d_exposure_rel_err"] = res["d_exposure_max_abs_err"] / float(ag[1].abs().max())
+        ok = ok and res["d_exposure_rel_err"] <= DEXP_REL
+    check(ok, f"Cb' against autograd of the composite: {res}")
+    return res
+
+
+def composite_row(raw, mode, gx, gy, w, h, grads=None, exposure=None):
+    """One composite kernel timed on a frame (CUDA events over 20
+    back-to-back calls, and queued behind a hold of the stream), beside
+    its twin (3 calls) and its bound: Cf' without `grads`, Cb' with."""
+    from gsplat_tpu_torch.ops import composite as cp
+
+    bg = torch.tensor(COMPOSITE_BG, device=raw.device)
+    args = (raw, mode, bg, exposure, gx, gy, 16, w, h)
+    if grads is None:
+        kernel, plain = (lambda: cp.composite_fwd(*args)), (lambda: cp.composite_torch(*args))
+        bnd = composite_bound(h, w)
+    else:
+        want = exposure is not None
+        kernel = lambda: cp.composite_bwd(*args, *grads, want_exposure=want)  # noqa: E731
+        plain = lambda: cp.composite_bwd_torch(*args, *grads, want_exposure=want)  # noqa: E731
+        bnd = composite_bound(h, w, grads, gx * gy, want)
+    ms = cuda_time(kernel, 20)
+    ms_queued, host_ahead = queued_ms(kernel, 20)
+    plain_ms = cuda_time(plain, 3)
+    check(ms >= bnd[0] and ms_queued >= bnd[0],
+          f"composite ({mode}): {ms} / {ms_queued} ms, under its bound {bnd[0]}")
+    return measured(ms, plain_ms, bnd, 0.0, 0.0, ms_queued=ms_queued,
+                    queued_host_ahead=host_ahead, mode=mode, size=f"{w}x{h}",
+                    exposure=exposure is not None)
 
 
 def expand_errors(what, got, want, rect):
@@ -1810,6 +2028,7 @@ def phase_main_path(device):
     """The full-width render through `render`, then per-kernel measurements."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
@@ -1860,6 +2079,9 @@ def phase_main_path(device):
     # timed apart on the host clock)
     stages = ("preprocess", "binning_tables", "K1_expand", "sort", "K1_pack", "K2_blend", "composite")
     stage_ms = {s: [] for s in stages}
+    # (`composite` is Cf' alone: render's copy of a list `bg` to the card is
+    # made once here, as the stage's plain ops took a device tensor)
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
     host_ms = {s: [] for s in stages}
     turnaround_ms = []
     for i in range(WARMUP + TIMED):
@@ -1886,8 +2108,8 @@ def phase_main_path(device):
         mark(5)
         blended = rc.blend_fwd(inst_t, bounds[:num_tiles], bounds[1:], gx, gy)
         mark(6)
-        color = blended[..., 0:3] + blended[..., 4:5] * torch.zeros(3, device=device)
-        image = torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0)
+        image, _, _ = cp.composite_fwd(blended, "sorted", bg_t, None, gx, gy, 16,
+                                       camera.width, camera.height)
         mark(7)
         torch.cuda.synchronize()
         if i >= WARMUP:
@@ -1896,6 +2118,22 @@ def phase_main_path(device):
                 host_ms[s].append((hs[j + 1] - hs[j]) * 1e3)
             turnaround_ms.append((launched - k_read) * 1e3)
     check(torch.equal(image, img), "stage-by-stage frame differs from render()")
+    # render()'s three outputs bit for bit the plain composite it ran before
+    # the kernels; then Cf' and Cb' against their twins on the frame
+    color = blended[..., 0:3] + blended[..., 4:5] * bg_t[None, None, :]
+    plain = (torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0),
+             tiles_to_image(blended[..., 3], gx, gy, 16, camera.width, camera.height),
+             tiles_to_image(blended[..., 4], gx, gy, 16, camera.width, camera.height))
+    check(all(bitwise_equal(out[key], p.contiguous())
+              for key, p in zip(("render", "invdepth", "final_t"), plain)),
+          "render() differs from the plain composite of its blend")
+    w_, h_ = camera.width, camera.height
+    composite_cases = [composite_check("render frame", blended, "sorted", gx, gy, w_, h_,
+                                       seeded_grads(h_, w_, device))]
+    cf_row = composite_row(blended, "sorted", gx, gy, w_, h_)
+    cf_row["exposure_frame"] = composite_row(blended, "sorted", gx, gy, w_, h_,
+                                             exposure=composite_exposure(device))
+    cf_row["cases"] = composite_cases
     k = tables[5]
     n = params.xyz.shape[0]
 
@@ -1974,6 +2212,7 @@ def phase_main_path(device):
         "blend_fwd": measured(blend_ms, blend_plain_ms, blend_bound, blend_err, blend_rel,
                               walked_pairs=walked, evaluated_pairs=pairs,
                               culled_share=cull["culled_share"]["blocks_8x4"]),
+        "composite_fwd": cf_row,
     }
     summary = {
         "gaussians": n, "size": f"{FULL['width']}x{FULL['height']}", "instances": k,
@@ -2097,6 +2336,7 @@ def phase_oit_render(device):
     counts, K5''s walked pairs and culled share."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
     from gsplat_tpu_torch.render import grid_dims, render
@@ -2145,8 +2385,8 @@ def phase_oit_render(device):
     # --- per-stage breakdown of the same frame
     gx, gy = grid_dims(camera, 16)
     num_tiles = gx * gy
-    bg_t = torch.zeros(3, device=device)
     stages = ("preprocess", "binning", "K5_oit_blend", "composite")
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
     stage_ms = {s: [] for s in stages}
     for i in range(WARMUP + TIMED):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
@@ -2158,16 +2398,30 @@ def phase_oit_render(device):
         args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
         raw = rc.blend_oit_fwd(*args)
         ev[3].record()
-        final_t = raw[:, :, 5]
-        w = (1.0 - final_t) / torch.clamp(raw[:, :, 4], min=1e-8)
-        color = raw[:, :, 0:3] * w[..., None] + final_t[..., None] * bg_t[None, None, :]
-        image = torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0)
+        image, _, _ = cp.composite_fwd(raw, "oit", bg_t, None, gx, gy, 16, camera.width,
+                                       camera.height)
         ev[4].record()
         torch.cuda.synchronize()
         if i >= WARMUP:
             for j, s in enumerate(stages):
                 stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
     check(torch.equal(image, img), "stage-by-stage OIT frame differs from render()")
+    # render() bit for bit the plain composite of K5''s sums it ran before the
+    # kernels; Cf' and Cb' against their twins on the frame
+    final_t = raw[:, :, 5]
+    w = (1.0 - final_t) / torch.clamp(raw[:, :, 4], min=1e-8)
+    color = raw[:, :, 0:3] * w[..., None] + final_t[..., None] * bg_t[None, None, :]
+    plain = (torch.clamp(tiles_to_image(color, gx, gy, 16, camera.width, camera.height), 0.0, 1.0),
+             tiles_to_image(raw[:, :, 3] * w, gx, gy, 16, camera.width, camera.height),
+             tiles_to_image(final_t, gx, gy, 16, camera.width, camera.height))
+    check(all(bitwise_equal(out[key], p.contiguous())
+              for key, p in zip(("render", "invdepth", "final_t"), plain)),
+          "OIT render() differs from the plain composite of its blend")
+    w_, h_ = camera.width, camera.height
+    composite_case = composite_check("OIT render frame", raw, "oit", gx, gy, w_, h_,
+                                     seeded_grads(h_, w_, device, seed=1))
+    cf_oit = composite_row(raw, "oit", gx, gy, w_, h_)
+    cf_oit["cases"] = [composite_case]
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2199,7 +2453,7 @@ def phase_oit_render(device):
     row = measured(k5_ms, plain_ms, k5_bound, float((raw - plain).abs().max()), full_nd,
                    evaluated_pairs=evaluated, kept_pairs=kept, **walked, t_max_abs_err=full_t,
                    bitwise_equal=bool(torch.equal(raw, plain)))
-    return summary, {"oit_fwd": row}
+    return summary, {"oit_fwd": row, "composite_fwd_oit_frame": cf_oit}
 
 
 def write_blender_scene(root: Path, size=800, n=200_000, seed=0, test_views=0):
@@ -2366,6 +2620,7 @@ def phase_train(device, blend_mode="sorted"):
     frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
+    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import projection as pj
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import reduce as rd
@@ -2421,10 +2676,12 @@ def phase_train(device, blend_mode="sorted"):
                         (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
                         (tb, "emission_tables", "bt0", "bt1"), (tb, "sort_instances", "st0", "st1"),
                         (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
-                        (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1")])
+                        (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1"),
+                        (cp, "composite_fwd", "cf0", "cf1"), (cp, "composite_bwd", "cb0", "cb1")])
     # `forward` holds `forward_projection`, `forward_binning_tables` (Bt'
     # and the read of K) and `forward_sort` (St''), `loss` holds `loss_kernel` and
-    # `loss_backward` holds `loss_backward_kernel`; what the projection
+    # `loss_backward` holds `loss_backward_kernel` and Cb' (`composite_backward`),
+    # `forward` Cf' (`composite`); what the projection
     # backward's kernel takes (`projection_backward`) is split from the
     # autograd steps before it and the statistics after it (until Adam);
     # `adam` is the Adam kernel with the freeze, `after_adam` what follows
@@ -2432,6 +2689,7 @@ def phase_train(device, blend_mode="sorted"):
              ("forward_binning_tables", "bt0", "bt1"), ("forward_sort", "st0", "st1"),
              ("loss", "fwd1", "loss1"), ("loss_kernel", "lf0", "lf1"),
              ("loss_backward", "loss1", "k3_0"), ("loss_backward_kernel", "lb0", "lb1"),
+             ("composite", "cf0", "cf1"), ("composite_backward", "cb0", "cb1"),
              (bwd_stage, "k3_0", "k3_1"),
              ("K4_reduce", "k3_1", "k4_1"), ("to_projection_backward", "k4_1", "pb0"),
              ("projection_backward", "pb0", "pb1"), ("stats", "pb1", "adam0"),
@@ -2446,10 +2704,10 @@ def phase_train(device, blend_mode="sorted"):
             if i >= WARMUP:
                 for name, a, b in spans:
                     stage_ms[name].append(marks.ms(a, b))
-    k3_args, k4_args, pack_args, exp_args, sort_args, pf_args, pb_args, adam_args, lf_args = (
-        marks.args[a] for a in (bwd_attr, "reduce_by_gid_cuda", "pack_instances",
-                                "expand_instances", "sort_instances", "project_fwd",
-                                "project_bwd", "adam_rows", "loss_fwd"))
+    (k3_args, k4_args, pack_args, exp_args, sort_args, pf_args, pb_args, adam_args, lf_args,
+     cb_args) = (marks.args[a] for a in (bwd_attr, "reduce_by_gid_cuda", "pack_instances",
+                                         "expand_instances", "sort_instances", "project_fwd",
+                                         "project_bwd", "adam_rows", "loss_fwd", "composite_bwd"))
     summary = {
         "gaussians": FULL["n"], "capacity": TRAIN_CAPACITY,
         "size": f"{FULL['width']}x{FULL['height']}", "packet_dtype": "hybrid",
@@ -2464,12 +2722,118 @@ def phase_train(device, blend_mode="sorted"):
     with torch.no_grad():  # the saved forward output carries requires_grad
         rows = (kernel_rows_oit_train(k3_args) if oit
                 else kernel_rows_train(k3_args, k4_args, pack_args, exp_args, sort_args))
+        rows.update(kernel_rows_composite_train(cb_args, k3_args))
+    del cb_args
     if not oit:
         rows.update(kernel_rows_projection_train(pf_args, pb_args))
         rows.update(kernel_rows_adam(adam_args))
         rows.update(kernel_rows_loss(lf_args, device))
     del adam_args, lf_args, marks
     return summary, state, rows, k3_args
+
+
+EXPOSURE_STEPS = (2, 10)  # warm-up and timed steps of the exposure and depth step
+DEPTH_WEIGHT = 0.1
+
+
+def phase_exposure_step(device):
+    """The sorted flagship train step with `use_exposure=True` and the
+    depth term at weight DEPTH_WEIGHT against a non-zero inverse-depth
+    target (0.9 times the unperturbed scene's, mask all ones): the counts
+    reset just before its steps and read just after (every train kernel
+    once a step), the loss finite and the exposure moved; then one step
+    with Cb''s arguments kept: Cb' with the exposure's gradient bit for bit
+    its twin, and its cotangent and d exposure against autograd of the
+    twin (COT_REL of `cotangent_scale`, DEXP_REL); its time; the step's median ms
+    and kernels per step from a profile."""
+    from types import SimpleNamespace
+
+    from gsplat_tpu_torch.core.types import make_render_settings
+    from gsplat_tpu_torch.ops import composite as cp
+    from gsplat_tpu_torch.render import render
+    from gsplat_tpu_torch.train import step as ts
+
+    settings = make_render_settings(sh_degree=3, packet_dtype="hybrid")
+    state, args, opt = flagship_train_setup(device, settings)
+    camera, target, alpha, _, _, bg, xyz_lr, exp_lr, _, idx = args
+    with torch.no_grad():
+        inv = render(camera, SimpleNamespace(**state.params), state.alive, settings, bg,
+                     device=device)["invdepth"]
+    args = (camera, target, alpha, 0.9 * inv, torch.ones_like(inv), bg, xyz_lr, exp_lr,
+            DEPTH_WEIGHT, idx)
+    check(float(args[3].abs().max()) > 0, "the inverse-depth target is zero")
+    step = ts.make_train_step(opt, settings, use_exposure=True)
+    exposure0 = state.exposure.clone()
+    reset_counts()
+    ms, loss = [], []
+    for i in range(sum(EXPOSURE_STEPS)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, *args)
+        torch.cuda.synchronize()
+        if i >= EXPOSURE_STEPS[0]:
+            ms.append((time.perf_counter() - t) * 1e3)
+        loss.append(float(metrics["loss"]))
+    launches = read_counts()
+    check_counts(launches, TRAIN_KERNELS, sum(EXPOSURE_STEPS), "exposure and depth step")
+    check(all(np.isfinite(loss)) and not torch.equal(state.exposure, exposure0),
+          f"exposure step: loss {loss[0]} -> {loss[-1]}, exposure moved "
+          f"{not torch.equal(state.exposure, exposure0)}")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step)
+    with StageMarks([(cp, "composite_bwd", None, None)]) as marks:
+        one_step()
+    raw, mode, bg_c, exposure, gx, gy, _, w, h, *grads = marks.args["composite_bwd"]
+    raw, exposure = raw.detach(), exposure.detach()
+    grads = [None if g is None else g.detach() for g in grads]
+    check(grads[0] is not None and grads[1] is not None, "exposure step: no d render or d invdepth")
+    got = cp.composite_bwd(raw, mode, bg_c, exposure, gx, gy, 16, w, h, *grads, want_exposure=True)
+    want = cp.composite_bwd_torch(raw, mode, bg_c, exposure, gx, gy, 16, w, h, *grads,
+                                  want_exposure=True)
+    check(bitwise_equal(got[0], want[0]) and bitwise_equal(got[1], want[1]),
+          "exposure step: Cb' with the exposure's gradient not bit for bit its twin")
+    vs_autograd = composite_vs_autograd(raw, mode, bg_c, exposure, gx, gy, w, h, grads)
+    row = composite_row(raw, mode, gx, gy, w, h, grads, exposure=exposure)
+    del holder, state, marks, raw, grads
+    return {"use_exposure": True, "depth_weight": DEPTH_WEIGHT,
+            "step_ms_median": statistics.median(ms), "step_ms": ms, "loss_first": loss[0],
+            "loss_last": loss[-1], "device_profile": profile,
+            "kernels_per_step": profile["kernels_per_frame"], "launches": launches,
+            "composite_bwd_with_exposure_grad": row, "vs_autograd": vs_autograd}
+
+
+def kernel_rows_composite_train(cb_args, blend_args):
+    """Cb' on the cotangents one train step gave it (the step's bg, the
+    loss's d render, the depth term's d invdepth, no d final_t): against
+    its twin bit for bit there and with COMPOSITE_BG and exposure; the
+    cotangent against autograd of the plain composite (sorted: columns 0-3
+    bit for bit); the cotangent equal to what the blend's backward received
+    in that step; timed beside its twin and bound. Sorted: the
+    `composite_bwd` row; OIT: `composite_bwd_oit_train_frame`."""
+    raw, mode, bg, exposure, gx, gy, _, w, h, *grads = cb_args
+    raw = raw.detach()
+    grads = [None if g is None else g.detach() for g in grads]
+    check(bitwise_equal(raw, blend_args[5].detach()), f"Cb' ({mode}) read another blend output "
+          "than the blend's backward")
+    check(exposure is None and grads[0] is not None and grads[1] is not None
+          and grads[2] is None, f"the {mode} train step's composite cotangents: "
+          f"{[g is not None for g in grads]}")
+    from gsplat_tpu_torch.ops import composite as cp
+
+    cot, _ = cp.composite_bwd(raw, mode, bg, None, gx, gy, 16, w, h, *grads)
+    check(bitwise_equal(cot, blend_args[6].contiguous()),
+          f"Cb' ({mode}): not the cotangent the blend's backward received")
+    cases = [composite_check(f"{mode} train frame", raw, mode, gx, gy, w, h, grads)]
+    vs_autograd = [composite_vs_autograd(raw, mode, b, None, gx, gy, w, h, grads)
+                   for b in (bg, torch.tensor(COMPOSITE_BG, device=raw.device))]
+    row = composite_row(raw, mode, gx, gy, w, h, grads)
+    row.update(cases=cases, vs_autograd=vs_autograd,
+               grads=[n for n, g in zip(GRAD_NAMES, grads) if g is not None])
+    return {"composite_bwd" if mode == "sorted" else "composite_bwd_oit_train_frame": row}
 
 
 def kernel_rows_projection_train(pf_args, pb_args):
@@ -3275,14 +3639,15 @@ class Swaps:
 
 def eval_counts(iterations, renders):
     """Launches of a training run with `renders` evaluation renders: the
-    projection forward, Bt', K1' (expand, hybrid pack), St'' and K2' per
-    iteration and per render, K3', K4', the projection backward, the loss
-    forward and backward and Adam per iteration."""
+    projection forward, Bt', K1' (expand, hybrid pack), St'', K2' and Cf'
+    per iteration and per render, K3', K4', the projection backward, the
+    loss forward and backward, Cb' and Adam per iteration."""
     return {"project_fwd": iterations + renders, "emission_tables": iterations + renders,
             "expand_instances": iterations + renders, "sort_instances": iterations + renders,
             "pack_instances_hybrid": iterations + renders,
             "blend_fwd": iterations + renders, "blend_bwd": iterations,
             "reduce_by_gid": iterations, "project_bwd": iterations,
+            "composite_fwd": iterations + renders, "composite_bwd": iterations,
             **{k: iterations for k in STEP_KERNELS}}
 
 
@@ -3478,7 +3843,7 @@ def phase_checkpoint_resume(device, root: Path):
     eval_launches = read_counts()
     check_launches(eval_launches, {"project_fwd": 4, "emission_tables": 4, "expand_instances": 4,
                                    "sort_instances": 4, "pack_instances_hybrid": 4,
-                                   "blend_fwd": 4},
+                                   "blend_fwd": 4, "composite_fwd": 4},
                    "evaluate_test, 2 views twice")
     l1s, psnrs = [], []
     with torch.no_grad():
@@ -3846,7 +4211,7 @@ def phase_bench():
             "expand_instances": 3 * grad + fwd, "sort_instances": 3 * grad + fwd,
             "pack_instances": grad, "pack_instances_hybrid": 2 * grad + fwd,
             "blend_fwd": 3 * grad + fwd, "blend_bwd": 3 * grad, "reduce_by_gid": 3 * grad,
-            "project_bwd": 3 * grad}
+            "project_bwd": 3 * grad, "composite_fwd": 3 * grad + fwd, "composite_bwd": 3 * grad}
     for name, got in launches.items():
         check(got == want.get(name, 0), f"bench: {name} launched {got} times, "
               f"want {want.get(name, 0)}")
@@ -3936,7 +4301,8 @@ def phase_quality_fixture(device):
                 "pack_instances": views + test_views, "pack_instances_hybrid": n_it + renders,
                 "blend_fwd": views + n_it + renders + test_views, "blend_bwd": n_it,
                 "reduce_by_gid": n_it, "project_bwd": n_it, "adam_rows": n_it,
-                "loss_fwd": n_it + test_views, "loss_bwd": n_it}
+                "loss_fwd": n_it + test_views, "loss_bwd": n_it,
+                "composite_fwd": views + n_it + renders + test_views, "composite_bwd": n_it}
         check_launches(launches, want, "quality run")
         with open(out / "summary.json") as f:
             row = json.load(f)["model"]
@@ -4144,7 +4510,7 @@ def _mesh_rank(cfg, shapes, backend, sharded_step=False):
         local, metrics = step(local, camera, *args[1:])
         torch.cuda.synchronize(device)
         res["launches"] = read_counts()
-        check_counts(res["launches"], TRAIN_KERNELS, 1, f"{tag}: mesh train step")
+        check_counts(res["launches"], MESH_TRAIN_KERNELS, 1, f"{tag}: mesh train step")
         res["loss"], res["loss_single_device"] = float(metrics["loss"]), ref_loss
         res["params_max_abs_err"] = max(
             float((v - ref_state.params[k][rows.start:rows.stop]).abs().max())
@@ -4787,6 +5153,8 @@ KERNEL_ROWS = (
     ("adam_rows", "train", "gsplat_tpu_torch/csrc/adam.cu", ADAM_REPLACES),
     ("loss_fwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
     ("loss_bwd", "train", "gsplat_tpu_torch/csrc/loss.cu", LOSS_REPLACES),
+    ("composite_fwd", "train", "gsplat_tpu_torch/csrc/composite.cu", COMPOSITE_REPLACES),
+    ("composite_bwd", "train", "gsplat_tpu_torch/csrc/composite.cu", COMPOSITE_REPLACES),
     ("expand_instances", "train", "gsplat_tpu_torch/csrc/binning.cu",
      "gsplat_tpu/ops/binning.py:485"),
     ("sort_instances", "train", "gsplat_tpu_torch/csrc/sort.cu", SORT_REPLACES),
@@ -4833,7 +5201,9 @@ PROFILED_ROWS = (("project_fwd", "render", "project_fwd_kernel"),
                  ("oit_bwd", "oit_train", "oit_bwd_kernel"),
                  ("adam_rows", "train", "adam_rows_kernel"),
                  ("loss_fwd", "train", "loss_fwd_kernel"),
-                 ("loss_bwd", "train", "loss_bwd_kernel"))
+                 ("loss_bwd", "train", "loss_bwd_kernel"),
+                 ("composite_fwd", "render", "composite_fwd_kernel"),
+                 ("composite_bwd", "train", "composite_bwd_kernel"))
 
 
 def attach_profiled(measures, profiles):
@@ -5001,6 +5371,30 @@ def main() -> int:
     emit(phase="oit_train_path", **oit_train_summary, seconds=time.perf_counter() - t)
     measures.update(oit_train_rows)
     del state
+    t = time.perf_counter()
+    exposure_step = phase_exposure_step(device)
+    emit(phase="exposure_depth_step", **{k: v for k, v in exposure_step.items()
+                                         if k != "composite_bwd_with_exposure_grad"},
+         seconds=time.perf_counter() - t)
+    # the composite kernels: Cf' on the render frames, Cb' on the train
+    # frames and on the exposure step's
+    cf, cb = measures["composite_fwd"], measures["composite_bwd"]
+    cf["oit_frame"] = measures.pop("composite_fwd_oit_frame")
+    cb["oit_train_frame"] = measures.pop("composite_bwd_oit_train_frame")
+    cb["exposure_step"] = exposure_step["composite_bwd_with_exposure_grad"]
+    emit(phase="composite", composite_fwd=cf, composite_bwd=cb,
+         frame_stage_ms={p: summary["stage_ms_median"]["composite"] for p, summary in
+                         (("render", render_summary), ("oit_render", oit_render_summary),
+                          ("train", train_summary), ("oit_train", oit_train_summary))},
+         step_backward_stage_ms={p: summary["stage_ms_median"]["composite_backward"]
+                                 for p, summary in (("train", train_summary),
+                                                    ("oit_train", oit_train_summary))},
+         kernels_per_frame={"render": render_summary["kernels_per_frame"],
+                            "oit_render": oit_render_summary["device_profile"][
+                                "kernels_per_frame"]},
+         kernels_per_step={"train": train_summary["kernels_per_step"],
+                           "oit_train": oit_train_summary["kernels_per_step"],
+                           "exposure_depth": exposure_step["kernels_per_step"]})
     for mode in ("sorted", "oit"):
         t = time.perf_counter()
         emit(phase="train_cli" if mode == "sorted" else "train_cli_oit",
@@ -5073,7 +5467,8 @@ def main() -> int:
                                    "quality_fixture": quality_summary["launches"],
                                    **multi_summary["launches"],
                                    "nccl_1x1": nccl_summary["launches"],
-                                   "train_cli_mesh_resumed": cli_mesh_summary["launches"]})
+                                   "train_cli_mesh_resumed": cli_mesh_summary["launches"],
+                                   "exposure_depth_step": exposure_step["launches"]})
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     print(json.dumps({"kernels": rows}), flush=True)

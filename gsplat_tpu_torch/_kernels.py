@@ -33,7 +33,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binning", "sort", "sort_onesweep", "rasterize_fwd", "rasterize_bwd", "reduce",
-           "rasterize_oit", "probe_skeleton", "probe_ops", "projection", "adam", "loss")
+           "rasterize_oit", "probe_skeleton", "probe_ops", "projection", "adam", "loss",
+           "composite")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -102,6 +103,7 @@ _SIGNATURES = {
     },
     "adam": {"gs_adam_rows": (_P, _P)},
     "loss": {"gs_loss_fwd": (_P, _P), "gs_loss_bwd": (_P, _P), "gs_loss_info": (_P,)},
+    "composite": {"gs_composite_fwd": (_P, _P), "gs_composite_bwd": (_P, _P)},
 }
 
 
@@ -150,6 +152,18 @@ LossBwdArgs = _struct("LossBwdArgs", [
     *((f, _P) for f in ("a", "b", "partials", "g_loss", "g_l1", "g_ssim", "grad")),
     ("h", _I), ("w", _I), ("taps", ctypes.c_float * LOSS_TAPS),
     *((f, ctypes.c_float) for f in ("lam", "olam", "inv_n"))])
+
+# the composite kernels' argument blocks (`csrc/composite.cu`); a pointer
+# left None is NULL (no exposure, a zero incoming gradient, no exposure
+# gradient); `oit` is 0 (sorted) or 1
+_COMPOSITE_DIMS = [(f, _I) for f in ("grid_x", "grid_y", "width", "height", "oit")]
+CompositeFwdArgs = _struct("CompositeFwdArgs", [
+    *((f, _P) for f in ("raw", "bg", "exposure", "render", "invdepth", "final_t")),
+    *_COMPOSITE_DIMS])
+CompositeBwdArgs = _struct("CompositeBwdArgs", [
+    *((f, _P) for f in ("raw", "bg", "exposure", "d_render", "d_invdepth", "d_final_t", "cot",
+                        "partials", "d_exposure", "ticket")),
+    *_COMPOSITE_DIMS])
 
 
 def nvcc_path() -> str:

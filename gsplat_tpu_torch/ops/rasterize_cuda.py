@@ -24,9 +24,10 @@ its sorted custom VJP `_make_blend_vjp`, :1193-1246, and its OIT custom VJP
   :897, and `_oit_bwd_kernel`, :974), plain twins `blend_oit_packed_torch`
   and `blend_oit_bwd_packed_torch`, wrapped by `OITBlendFunction`. The
   kernels compute the raw per-pixel sums [N0..N3, D, T, 0, 0]; the
-  quotient N / max(D, 1e-8) * (1 - T) is composed in plain torch
-  (`blend_tiles_cuda`), so autograd differentiates it, as
-  `rasterize_pallas.py:1306-1324` does.
+  quotient N / max(D, 1e-8) * (1 - T) (`rasterize_pallas.py:1306-1324`) is
+  formed by the composite kernels (`ops/composite.py`) on `render()`'s path
+  and in plain torch by `blend_tiles_cuda`'s `BlendOutput`, whose autograd
+  differentiates it.
 
 - The warp cull of K2' and K3' (`csrc/common.cuh`): a warp owns an 8x4
   block of its tile's pixels and skips an instance that cannot be kept at
@@ -768,7 +769,8 @@ def blend_tiles_cuda(
     track_contrib: bool = False,
     blend_mode: str = "sorted",
     reduce_pack: bool = False,
-) -> BlendOutput:
+    raw: bool = False,
+):
     """Blend the instance stream: `blend_tiles_pallas`, sorted or OIT mode.
 
     Differentiable w.r.t. the screen arrays through `BlendFunction` (sorted:
@@ -779,9 +781,12 @@ def blend_tiles_cuda(
     per-instance gradient rows to bf16 before the sum, as the hybrid and
     bf16 packet modes do (`render.py`).
 
-    OIT: the kernels give the raw sums N, D and T; the quotient is composed
-    here, in plain torch, so autograd carries its gradient to the sums.
-    `n_contrib` is zero (OIT ignores `track_contrib`).
+    With `raw`, returns the kernels' (T, 256, 8) output itself, still
+    differentiable: `[r, g, b, invdepth, final_T, n_contrib, 0, 0]` sorted,
+    the raw sums `[N0..N3, D, T, 0, 0]` OIT, for the composite kernels
+    (`render`). Else a `BlendOutput` of column views; OIT: the quotient is
+    composed here, in plain torch, so autograd carries its gradient to the
+    sums, and `n_contrib` is zero (OIT ignores `track_contrib`).
     """
     if tile * tile != PPT:
         raise ValueError("the blend kernel is built for 16x16 tiles")
@@ -802,6 +807,8 @@ def blend_tiles_cuda(
     else:
         args = (bins.inst_t, bins.tile_start, bins.tile_end, grid_x, grid_y, track_contrib)
         out = blend_fwd(*args) if bins.inst_t.is_cuda else blend_packed_torch(*args)
+    if raw:
+        return out
     if oit:
         final_t = out[:, :, 5]
         w = (1.0 - final_t) / torch.clamp(out[:, :, 4], min=1e-8)

@@ -41,6 +41,7 @@ import torch
 from gsplat_tpu_torch.convert import PARAM_FIELDS
 from gsplat_tpu_torch.core.types import Camera, RenderSettings
 from gsplat_tpu_torch.ops.binning import pack_bins
+from gsplat_tpu_torch.ops.composite import exposure_clamp_torch
 from gsplat_tpu_torch.ops.projection import ScreenGaussians, preprocess
 from gsplat_tpu_torch.ops.rasterize_cuda import blend_tiles_cuda
 from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
@@ -185,12 +186,11 @@ def make_sharded_render(mesh: comm.Mesh, settings: RenderSettings, width: int, h
         img = comm.gather_bands(band_img.contiguous(), mesh)[:height]
         per_band = comm.gather_counts([bins.num_instances, int(sizes.max())], mesh, "tile",
                                       "band_instances")
-        image = img[..., 0:3]
         if exposure is not None:
             exposure = torch.as_tensor(exposure, dtype=torch.float32, device=dev)
-            image = torch.einsum("hwc,cd->hwd", image, exposure[:3, :3]) + exposure[:3, 3]
         return {
-            "render": torch.clamp(image, 0.0, 1.0),
+            # the composite kernels' exposure order, so a mesh rounds as one card
+            "render": exposure_clamp_torch(img[..., 0:3], exposure),
             "invdepth": img[..., 3],
             "final_t": img[..., 4],
             "radii": screen.radius,

@@ -55,16 +55,21 @@ def profile_calls(fn, calls: int):
     return prof
 
 
-def busy_span_us(prof):
-    """(busy, span) in microseconds of a finished profile: `span` runs from
-    the first host event to the last event's end, `busy` is the union of
-    the device intervals inside it, so busy <= span."""
+def trace_events(prof):
+    """The complete ("X") events of a finished profile's chrome trace."""
     with tempfile.TemporaryDirectory(prefix="gsplat_trace_") as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         trace = json.loads(path.read_text())
-    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
-              if e.get("ph") == "X" and "dur" in e]
+    return [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def busy_span_us(prof, events=None):
+    """(busy, span) in microseconds of a finished profile: `span` runs from
+    the first host event to the last event's end, `busy` is the union of
+    the device intervals inside it, so busy <= span."""
+    events = trace_events(prof) if events is None else events
 
     def spans(cats):
         return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
@@ -83,3 +88,43 @@ def device_ms_per_call(fn, calls: int = 3) -> float:
     """The card's busy time per call of `fn()`, over `calls` profiled calls."""
     busy, _ = busy_span_us(profile_calls(fn, calls))
     return busy / 1e3 / calls
+
+
+# the host calls that queue device work: kernels, copies and sets
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaMemcpy", "cudaMemset")
+
+
+def launch_census(events, calls: int) -> dict:
+    """Host launches against device events in a profile's trace, matched by
+    correlation id: launches and device events per call, and by name the
+    launches the trace holds no device event for (named by the host op that
+    made them) and the device events it holds no launch for (by kernel)."""
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("name") in LAUNCH_CALLS]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    device_ids, launch_ids = {corr(e) for e in device}, {corr(e) for e in launches}
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+
+    def op_of(launch):
+        hits = [o for o in ops if o.get("tid") == launch.get("tid")
+                and o["ts"] <= launch["ts"] <= o["ts"] + o["dur"]]
+        return max(hits, key=lambda o: o["ts"])["name"] if hits else launch["name"]
+
+    def tally(names):
+        out = {}
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+        return out
+
+    return {"launched_per_call": len(launches) / calls,
+            "device_events_per_call": len(device) / calls,
+            "launches_without_device_event": tally(
+                op_of(e) for e in launches if corr(e) not in device_ids),
+            "device_events_without_launch": tally(
+                e["name"][:90] for e in device if corr(e) not in launch_ids)}

@@ -3,9 +3,11 @@
 One view goes through `preprocess` (the projection kernel), `pack_bins`
 (kernels Bt', K1' and St', the sort), `blend_tiles_cuda` (sorted blend:
 kernel K2' forward, K3' and K4' in its backward; OIT blend: K5' forward,
-K6' and K4' in its backward, the quotient in plain PyTorch), then the background
-composite, `tiles_to_image`, exposure and clip in plain PyTorch. Images are
-HWC, as in the JAX package. On a CPU device the kernels' plain twins run.
+K6' and K4' in its backward), then `composite` (kernel Cf' forward, Cb' in
+its backward: the OIT quotient, the background term, `tiles_to_image`, the
+exposure and the clip, `ops/composite.py`), which hands the blend's
+backward its (T, 256, 8) cotangent directly. Images are HWC, as in the JAX
+package. On a CPU device the kernels' plain twins run.
 
 Every `blend_mode` ("sorted", "oit") and `packet_dtype` ("float32",
 "hybrid", "bfloat16") of the JAX package renders. With hybrid and bf16
@@ -16,8 +18,9 @@ so the bf16 mode has to ask for that rounding by name.
 
 The render is differentiable: gradients reach every parameter, the
 optional `mean2d_offset` (the densification signal) and the exposure, as
-`jax.grad` of the JAX package's render does. Binning is structure: it sees
-detached screen arrays.
+`jax.grad` of the JAX package's render does; `bg` gets none (a `bg` that
+asks for one is refused). Binning is structure: it sees detached screen
+arrays.
 
 `instance_overflow` and `tile_overflow` are always 0: the instance buffer is
 sized per frame and the blend walks every instance of a tile.
@@ -34,9 +37,9 @@ from gsplat_tpu_torch.convert import PARAM_FIELDS
 from gsplat_tpu_torch.core.types import Camera, GaussianParams, RenderSettings
 from gsplat_tpu_torch.device import resolve_device
 from gsplat_tpu_torch.ops.binning import pack_bins
+from gsplat_tpu_torch.ops.composite import composite
 from gsplat_tpu_torch.ops.projection import preprocess
 from gsplat_tpu_torch.ops.rasterize_cuda import blend_tiles_cuda
-from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
 
 
 def grid_dims(camera: Camera, tile: int):
@@ -94,23 +97,17 @@ def render(
     )
     bins = pack_bins(screen, gx, gy, settings.tile, settings.tight_cull,
                      packet_dtype=settings.packet_dtype)
-    out = blend_tiles_cuda(
+    raw = blend_tiles_cuda(
         screen, bins, gx, gy, settings.tile,
         track_contrib=settings.track_contrib, blend_mode=settings.blend_mode,
-        reduce_pack=settings.packet_dtype in ("hybrid", "bfloat16"),
+        reduce_pack=settings.packet_dtype in ("hybrid", "bfloat16"), raw=True,
     )
 
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    color = out.color + out.final_t[..., None] * bg[None, None, :]
-    image = tiles_to_image(color, gx, gy, settings.tile, camera.width, camera.height)
-    invdepth = tiles_to_image(out.invdepth, gx, gy, settings.tile, camera.width, camera.height)
-    final_t = tiles_to_image(out.final_t, gx, gy, settings.tile, camera.width, camera.height)
-
     if exposure is not None:
         exposure = torch.as_tensor(exposure, dtype=torch.float32, device=dev)
-        image = torch.einsum("hwc,cd->hwd", image, exposure[:3, :3]) + exposure[:3, 3]
-
-    image = torch.clamp(image, 0.0, 1.0)
+    image, invdepth, final_t = composite(raw, settings.blend_mode, bg, exposure, gx, gy,
+                                         settings.tile, camera.width, camera.height)
 
     return {
         "render": image,
@@ -119,6 +116,6 @@ def render(
         "radii": screen.radius,
         "visibility": screen.radius > 0,
         "instance_overflow": bins.overflow,
-        "tile_overflow": out.overflow,
+        "tile_overflow": 0,
         "num_instances": bins.num_instances,
     }

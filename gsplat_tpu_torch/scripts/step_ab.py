@@ -12,12 +12,15 @@ packets) and the sorted and OIT train steps (hybrid packets) of the
 flagship scene (1,048,576 gaussians, 2,097,152 rows in training, SH 3,
 1920x1080), the median host ms of 20 calls after 5 warm-up calls, and over
 3 profiled calls the device ms, kernels, busy share and host-to-device
-copies per call; the peak memory of the timed calls. For the sorted step
+copies per call, and the launch census (`profiling.launch_census`: host
+launches and device events per call, and those of either without the
+other, by name); the peak memory of the timed calls. For the sorted step
 also the loss kernels on the step's own images (`loss_fwd`, `loss_bwd`:
 mean device ms of 20 back-to-back calls after one, CUDA events) and the
 device work between the render and the blend backward in one profiled
-step (`loss_glue`): each kernel, copy and set in device order, with its
-microseconds, the operator that launched it and, in the backward, the
+step (`loss_glue`; on trees with the composite kernels it holds Cb'):
+each kernel, copy and set in device order, with its microseconds, the
+operator that launched it and, in the backward, the
 autograd node, split into the loss forward (launched by the step's own
 thread after the render returns) and the loss backward (launched by
 autograd's device thread before the blend backward).
@@ -26,6 +29,7 @@ autograd's device thread before the blend backward).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import sys
@@ -36,19 +40,30 @@ from pathlib import Path
 WARMUP, TIMED, PROFILED = 5, 20, 3
 
 
+def own_profiling():
+    """This script's own `gsplat_tpu_torch/profiling.py`, loaded by path, so
+    every tree's profile is read (and its launches counted) the same way."""
+    spec = importlib.util.spec_from_file_location(
+        "step_ab_profiling", Path(__file__).resolve().parents[1] / "profiling.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def profile(fn):
     """Device ms, kernels, busy share and host-to-device copies per call
     over PROFILED calls (`torch.profiler`)."""
     from torch.autograd import DeviceType
 
-    from gsplat_tpu_torch.profiling import busy_span_us, profile_calls
-
-    prof = profile_calls(fn, PROFILED)
+    profiling = own_profiling()
+    prof = profiling.profile_calls(fn, PROFILED)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    busy, span = busy_span_us(prof)
+    events = profiling.trace_events(prof)
+    busy, span = profiling.busy_span_us(prof, events)
     return {"device_ms": sum(r[1] for r in rows) / PROFILED,
             "kernels": sum(r[2] for r in rows) / PROFILED,
+            "launch_census": profiling.launch_census(events, PROFILED),
             "busy_share": busy / span,
             "htod_copies": sum(r[2] for r in rows if "HtoD" in r[0]) / PROFILED}
 
