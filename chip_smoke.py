@@ -92,12 +92,15 @@ JSON line per phase:
    exposure (Cb' also with the exposure's gradient, its counter of
    finished blocks zero again after each launch), Cf' timed beside its
    twin and byte bound (CUDA events back to back and queued behind a hold
-   of the stream), without and with exposure; a
-   per-stage breakdown, each stage's device ms (CUDA events) beside its host
-   ms (the host clock from its first launch call to its last call's return)
-   (`binning_tables`: Bt' and the read of K, the frame's one host sync;
-   `sort`: St''; `k_read_to_expand_launch_ms`, the host's turnaround from
-   that read's return to the expand's launch); the sort (`sort_instances`,
+   of the stream), without and with exposure; the frame's stages from
+   the program's own spans over the profiled frames (`profiling.stage_report`:
+   host, device and idle ms and launches of each of `project`, `bin/tables`
+   (Bt'), `bin/read_k` (the read of K, the frame's one host sync),
+   `bin/expand` (its idle ms: the turnaround from that read to the expand's
+   launch), `bin/sort` (St''), `bin/pack`, `blend`, `composite`), each
+   once a frame, none inside another, no launch outside them, and the
+   `instances` counter the frame's K (device operations that start before
+   their launch counted, not held); the sort (`sort_instances`,
    St'' up to 2^23 keys of up to 46 bits, St' for more or wider ones) each
    route forced (St'' only on keys of up to 46 bits) `torch.equal` to its
    twin `sort_instances_torch` on the frame's keys (their largest live key
@@ -139,7 +142,7 @@ JSON line per phase:
 12. the OIT render path at full width (`oit_render_path`): the same scene
    with `blend_mode="oit"`, 5 + 20 frames, counts read around them (K1' and
    the float32 pack once per frame, K5' once, K2' never), 10 sorted and 10
-   OIT frames in turns, stage split (the composite through Cf'), busy
+   OIT frames in turns, its stages checked as the sorted frame's, busy
    share, peak memory, K5' `torch.equal` to its twin on the whole frame and
    its row (with its walked pairs and culled share); the frame's outputs
    bit for bit the plain composite of K5''s sums (the OIT quotient, the
@@ -157,8 +160,9 @@ JSON line per phase:
    the loss forward and backward, Cf', Cb' and Adam once per step; every path below also projects once per frame, step,
    evaluation view, viewer request and mesh rank-step, and launches Bt'
    and St'' once for each K1' expand), the loss falling,
-   no NaN; a stage split (the projection's forward and backward kernels
-   apart, `composite` and `composite_backward`: Cf' and Cb'), the busy
+   no NaN; its stages checked as the frame's (every stage of
+   `profiling.STAGES`, the backward's on autograd's device thread inside
+   `backward`; `composite` and `backward/composite`: Cf' and Cb'), the busy
    share and kernels per step, peak memory; Cb' on the step's own
    cotangents (d render from the loss, d invdepth from the depth term at
    weight 0, no d final_t): its output the cotangent K3' received in that
@@ -171,8 +175,8 @@ JSON line per phase:
    projection kernels on the step's own inputs (2,097,152 rows, half
    dead, the offset, the blend's cotangents) against their twins and
    autograd, and timed; K3', K4', Bt' (the train frame's screen, bit for
-   bit, and its `forward_binning_tables` stage), St'' (the step's keys, bit
-   for bit its twin and the pack's input, and its `forward_sort` stage), the expand
+   bit, and its `bin/tables` stage), St'' (the step's keys, bit
+   for bit its twin and the pack's input, and its `bin/sort` stage), the expand
    (2,097,152 rows, half dead) and the hybrid pack against their twins at
    the train frame's shapes and timed there (K4' also at the live rows'
    N, and the zeroing of its accumulator alone), none under its bound;
@@ -491,10 +495,15 @@ def device_profile(frame, frames=3, top=10):
     is theirs. Also the summed device time per kernel name, the top kernels,
     and the device time per frame of each of the port's kernels the frame
     ran (no host gap between launches counts there), and the host-to-device
-    copies per frame."""
+    copies per frame; and the frame's stages, from the program's own spans
+    (`profiling.stage_report`: host, device and idle ms and launches per
+    stage and frame, the counters, the clock check), with how often each
+    stage opened a frame and the spans opened inside another on their
+    thread (`nested_stages`: none where the stages are flat)."""
     from torch.autograd import DeviceType
 
-    from gsplat_tpu_torch.profiling import busy_span_us, launch_census, profile_calls, trace_events
+    from gsplat_tpu_torch.profiling import (busy_span_us, launch_census, nested, profile_calls,
+                                            stage_report, stage_spans, trace_events)
 
     prof = profile_calls(frame, frames)
     # device-side events only: the CPU-side op rows repeat their kernels' time
@@ -503,7 +512,14 @@ def device_profile(frame, frames=3, top=10):
     rows.sort(key=lambda r: -r[1])
     events = trace_events(prof)
     busy, span = busy_span_us(prof, events)
+    spans = stage_spans(events)
+    opened = {}
+    for sp in spans:
+        opened[sp[2]] = opened.get(sp[2], 0) + 1
     return {
+        "stage_report": stage_report(events, frames),
+        "stages_per_frame": {k: v / frames for k, v in opened.items()},
+        "nested_stages": nested(spans),
         "device_ms_per_frame": sum(r[1] for r in rows),
         "kernels_per_frame": sum(r[2] for r in rows),
         "launch_census": launch_census(events, frames),
@@ -516,6 +532,23 @@ def device_profile(frame, frames=3, top=10):
         "port_kernels_ms_per_frame": {f: sum(ms for k, ms, _ in rows if f in k)
                                       for f in PATH_KERNEL_FUNCS if any(f in k for k, _, _ in rows)},
     }
+
+
+def check_stages(profile, stages, instances, what):
+    """The profiled frames' stages: each of `stages` (and no other) once a
+    frame, none inside another on its thread, every launch inside one, and
+    the `instances` counter the frames' instance counts. The clock check
+    (`clock_violations`, `clock_lead_us`) is reported, not held: a
+    profiler session now and then maps the device's times tens of us off
+    the host's (on an H100: one session in nine of the train step, by 50 us)."""
+    rep = profile["stage_report"]
+    check(profile["stages_per_frame"] == {s: 1.0 for s in stages},
+          f"{what}: stages a frame {profile['stages_per_frame']}")
+    check(not profile["nested_stages"], f"{what}: nested stages {profile['nested_stages']}")
+    check(rep["stages"]["outside"]["launches"] == 0,
+          f"{what}: {rep['stages']['outside']['launches']} launches a frame outside every stage")
+    check(rep["counters"].get("instances") == instances,
+          f"{what}: instances counted {rep['counters'].get('instances')}, the frames' {instances}")
 
 
 def all_kernels():
@@ -2026,9 +2059,9 @@ def phase_projection(device):
 
 def phase_main_path(device):
     """The full-width render through `render`, then per-kernel measurements."""
+    from gsplat_tpu_torch import profiling
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
-    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops import sort as so
     from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
@@ -2063,61 +2096,24 @@ def phase_main_path(device):
     check(float(img.std()) > 0.01, "image is flat")
     check(out["instance_overflow"] == 0 and out["tile_overflow"] == 0, "overflow")
 
-    # --- device busy time per frame and the kernels that take it (profiler
-    # over a few render() calls; the launch counts were read above)
+    # --- device busy time per frame, the kernels that take it and the
+    # frame's stages (profiler over a few render() calls; the launch counts
+    # were read above)
     profile = device_profile(lambda: render(camera, params, alive, settings, bg, device=DEVICE))
+    check_stages(profile, profiling.RENDER_STAGES, [out["num_instances"]] * 3, "render path")
 
-    # --- per-stage breakdown of the same frame, stage by stage: device ms
-    # between CUDA events, and host ms on the host clock from the stage's
-    # first launch call to its last call's return
+    # --- the frame's intermediates, kernel by kernel, for the checks below
     gx, gy = grid_dims(camera, 16)
     num_tiles = gx * gy
     key_bits = so.sort_key_bits(num_tiles)
-    # (`binning_tables` is Bt' and the read of K, the frame's host sync, so
-    # its host ms hold the wait for the device; `K1_expand` starts with the
-    # host's turnaround from that read's return to the expand's launch,
-    # timed apart on the host clock)
-    stages = ("preprocess", "binning_tables", "K1_expand", "sort", "K1_pack", "K2_blend", "composite")
-    stage_ms = {s: [] for s in stages}
-    # (`composite` is Cf' alone: render's copy of a list `bg` to the card is
-    # made once here, as the stage's plain ops took a device tensor)
     bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
-    host_ms = {s: [] for s in stages}
-    turnaround_ms = []
-    for i in range(WARMUP + TIMED):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
-        hs = []
-
-        def mark(j):
-            hs.append(time.perf_counter())
-            ev[j].record()
-
-        mark(0)
-        screen, _, _ = screen_of((params, alive, camera), settings, device)
-        mark(1)
-        screen = screen.detach()
-        tables = tb._emission_tables(screen, 16, True)
-        k_read = time.perf_counter()
-        mark(2)
-        keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
-        launched = time.perf_counter()
-        mark(3)
-        keys_sorted, gauss_sorted = so.sort_instances(keys, gid, key_bits)
-        mark(4)
-        inst_t, tile_id, bounds = tb.pack_instances(keys_sorted, gauss_sorted, packets, num_tiles)
-        mark(5)
-        blended = rc.blend_fwd(inst_t, bounds[:num_tiles], bounds[1:], gx, gy)
-        mark(6)
-        image, _, _ = cp.composite_fwd(blended, "sorted", bg_t, None, gx, gy, 16,
-                                       camera.width, camera.height)
-        mark(7)
-        torch.cuda.synchronize()
-        if i >= WARMUP:
-            for j, s in enumerate(stages):
-                stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
-                host_ms[s].append((hs[j + 1] - hs[j]) * 1e3)
-            turnaround_ms.append((launched - k_read) * 1e3)
-    check(torch.equal(image, img), "stage-by-stage frame differs from render()")
+    screen, _, _ = screen_of((params, alive, camera), settings, device)
+    screen = screen.detach()
+    tables = tb._emission_tables(screen, 16, True)
+    keys, gid, packets = tb.expand_instances(*tables[:5], screen, tables[5], gx, True)
+    keys_sorted, gauss_sorted = so.sort_instances(keys, gid, key_bits)
+    inst_t, tile_id, bounds = tb.pack_instances(keys_sorted, gauss_sorted, packets, num_tiles)
+    blended = rc.blend_fwd(inst_t, bounds[:num_tiles], bounds[1:], gx, gy)
     # render()'s three outputs bit for bit the plain composite it ran before
     # the kernels; then Cf' and Cb' against their twins on the frame
     color = blended[..., 0:3] + blended[..., 4:5] * bg_t[None, None, :]
@@ -2222,11 +2218,7 @@ def phase_main_path(device):
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "device_profile": profile,
         "kernels_per_frame": profile["kernels_per_frame"],
-        "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
-        "stage_host_ms_median": {s: statistics.median(v) for s, v in host_ms.items()},
-        "stage_host_ms": host_ms,
-        "k_read_to_expand_launch_ms_median": statistics.median(turnaround_ms),
-        "k_read_to_expand_launch_ms": turnaround_ms,
+        "stages": profile["stage_report"]["stages"],
         "emission_tables_cases": bt_cases, "sort_instances_cases": sort_cases,
         # the library route St'' replaced: torch.sort and the gather of the gids
         "sort_ms": sort_measure["library_ms"], "launches": launches,
@@ -2331,12 +2323,12 @@ def oit_walked_pairs(args, fwd=None, dout=None):
 
 def phase_oit_render(device):
     """The full-width render in OIT mode through `render` (float32 packets),
-    then a stage split and K5''s row: K5' equal to its twin on the whole
-    frame (`torch.equal`), the twin's time and its evaluated and kept pair
-    counts, K5''s walked pairs and culled share."""
+    then its stages (the program's spans) and K5''s row: K5' equal to its
+    twin on the whole frame (`torch.equal`), the twin's time and its
+    evaluated and kept pair counts, K5''s walked pairs and culled share."""
+    from gsplat_tpu_torch import profiling
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
-    from gsplat_tpu_torch.ops import composite as cp
     from gsplat_tpu_torch.ops import rasterize_cuda as rc
     from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
     from gsplat_tpu_torch.render import grid_dims, render
@@ -2369,6 +2361,7 @@ def phase_oit_render(device):
     check(float(img.std()) > 0.01, "OIT image is flat")
 
     profile = device_profile(lambda: render(camera, params, alive, settings, bg, device=DEVICE))
+    check_stages(profile, profiling.RENDER_STAGES, [out["num_instances"]] * 3, "OIT render path")
 
     # --- sorted and OIT frames in turns in one loop: the two paths' frame
     # times without the host's drift between phases
@@ -2382,30 +2375,14 @@ def phase_oit_render(device):
             torch.cuda.synchronize()
             turns[mode].append((time.perf_counter() - t) * 1e3)
 
-    # --- per-stage breakdown of the same frame
+    # --- the frame's blend, for the checks below
     gx, gy = grid_dims(camera, 16)
     num_tiles = gx * gy
-    stages = ("preprocess", "binning", "K5_oit_blend", "composite")
     bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
-    stage_ms = {s: [] for s in stages}
-    for i in range(WARMUP + TIMED):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
-        ev[0].record()
-        screen, _, _ = screen_of((params, alive, camera), settings, device)
-        ev[1].record()
-        pb = tb.pack_bins(screen, gx, gy)
-        ev[2].record()
-        args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
-        raw = rc.blend_oit_fwd(*args)
-        ev[3].record()
-        image, _, _ = cp.composite_fwd(raw, "oit", bg_t, None, gx, gy, 16, camera.width,
-                                       camera.height)
-        ev[4].record()
-        torch.cuda.synchronize()
-        if i >= WARMUP:
-            for j, s in enumerate(stages):
-                stage_ms[s].append(ev[j].elapsed_time(ev[j + 1]))
-    check(torch.equal(image, img), "stage-by-stage OIT frame differs from render()")
+    screen, _, _ = screen_of((params, alive, camera), settings, device)
+    pb = tb.pack_bins(screen, gx, gy)
+    args = (pb.inst_t, pb.tile_start, pb.tile_end, gx, gy)
+    raw = rc.blend_oit_fwd(*args)
     # render() bit for bit the plain composite of K5''s sums it ran before the
     # kernels; Cf' and Cb' against their twins on the frame
     final_t = raw[:, :, 5]
@@ -2444,8 +2421,7 @@ def phase_oit_render(device):
         "evaluated_pairs": evaluated, "kept_pairs": kept, **walked, "setup_s": setup_s,
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
         "frames_in_turns_ms_median": {m: statistics.median(v) for m, v in turns.items()},
-        "device_profile": profile,
-        "stage_ms_median": {s: statistics.median(v) for s, v in stage_ms.items()},
+        "device_profile": profile, "stages": profile["stage_report"]["stages"],
         "launches": launches, "peak_mem_gib": peak_gib, "k5_check_tiles": CHECK_TILES,
         "k5_full_frame": {"nd_max_rel_err": full_nd, "t_max_abs_err": full_t,
                           "bitwise_equal": bool(torch.equal(raw, plain))},
@@ -2540,31 +2516,21 @@ def pad_rows(params, alive, capacity):
 
 
 class StageMarks:
-    """CUDA events recorded around functions the train step calls, by
-    swapping each module attribute for a recording wrapper while active.
-    Each wrapper also keeps the arguments of its last call. Used only to
-    split and to capture, never on the counted run."""
+    """The arguments of the last call of each of some functions the train
+    step calls, kept by swapping each module attribute for a wrapper while
+    active; the kernel checks take the step's own inputs from them."""
 
     def __init__(self, patches):
-        self.patches = patches  # (module, attribute, mark before, mark after)
-        self.events, self.args, self._saved = {}, {}, []
-
-    def mark(self, name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.events[name] = e
+        self.patches = patches  # (module, attribute)
+        self.args, self._saved = {}, []
 
     def __enter__(self):
-        for mod, attr, before, after in self.patches:
+        for mod, attr in self.patches:
             fn = getattr(mod, attr)
             self._saved.append((mod, attr, fn))
 
-            def wrapped(*a, _fn=fn, _attr=attr, _b=before, _e=after, **kw):
-                if _b:
-                    self.mark(_b)
+            def wrapped(*a, _fn=fn, _attr=attr, **kw):
                 out = _fn(*a, **kw)
-                if _e:
-                    self.mark(_e)
                 self.args[_attr] = a
                 return out
 
@@ -2577,9 +2543,6 @@ class StageMarks:
     def __exit__(self, *exc):
         for mod, attr, fn in reversed(self._saved):
             setattr(mod, attr, fn)
-
-    def ms(self, a, b):
-        return self.events[a].elapsed_time(self.events[b])
 
 
 def flagship_train_setup(device, settings, full=None, capacity=None):
@@ -2616,8 +2579,10 @@ def flagship_train_setup(device, settings, full=None, capacity=None):
 def phase_train(device, blend_mode="sorted"):
     """The train path at full width: the flagship scene through
     `make_train_step` in hybrid mode, with the sorted or the OIT blend; then
-    the stage split, the busy share, and the kernel rows at the train
-    frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6' (OIT)."""
+    its stages (the program's spans), the busy share, and the kernel rows at
+    the train frame's shapes: K3', K4' and the hybrid K1' pack (sorted), K6'
+    (OIT)."""
+    from gsplat_tpu_torch import profiling
     from gsplat_tpu_torch.core.types import make_render_settings
     from gsplat_tpu_torch.ops import binning as tb
     from gsplat_tpu_torch.ops import composite as cp
@@ -2658,52 +2623,27 @@ def phase_train(device, blend_mode="sorted"):
         check(not bool(torch.isnan(v).any()), f"NaN in {k} after training")
     check(torch.equal(state.alive, alive), "alive changed in train steps")
 
-    # --- device busy share over 3 profiled steps (counts already read)
-    holder = [state]
+    # --- device busy share and the step's stages over 3 profiled steps
+    # (counts already read)
+    holder, counted = [state], []
 
     def one_step():
-        holder[0], _ = step(holder[0], *args)
+        holder[0], metrics = step(holder[0], *args)
+        counted.append(metrics["num_instances"])
 
     profile = device_profile(one_step)
+    check_stages(profile, profiling.STAGES, counted[-3:], f"{blend_mode} train path")
     state = holder[0]
 
-    # --- stage split, and the inputs the blend backward (K3' or K6'), K4'
-    # and the pack get in a step
-    bwd_attr, bwd_stage = ("blend_oit_bwd", "K6_oit_bwd") if oit else ("blend_bwd", "K3_blend_bwd")
-    marks = StageMarks([(ts, "render", "fwd0", "fwd1"), (losses, "depth_l1_loss", None, "loss1"),
-                        (losses, "loss_fwd", "lf0", "lf1"), (losses, "loss_bwd", "lb0", "lb1"),
-                        (rc, bwd_attr, "k3_0", "k3_1"), (rd, "reduce_by_gid_cuda", None, "k4_1"),
-                        (ts, "adam_update", "adam0", "adam1"), (tb, "pack_instances", None, None),
-                        (tb, "emission_tables", "bt0", "bt1"), (tb, "sort_instances", "st0", "st1"),
-                        (tb, "expand_instances", None, None), (optim, "adam_rows", None, None),
-                        (pj, "project_fwd", "pf0", "pf1"), (pj, "project_bwd", "pb0", "pb1"),
-                        (cp, "composite_fwd", "cf0", "cf1"), (cp, "composite_bwd", "cb0", "cb1")])
-    # `forward` holds `forward_projection`, `forward_binning_tables` (Bt'
-    # and the read of K) and `forward_sort` (St''), `loss` holds `loss_kernel` and
-    # `loss_backward` holds `loss_backward_kernel` and Cb' (`composite_backward`),
-    # `forward` Cf' (`composite`); what the projection
-    # backward's kernel takes (`projection_backward`) is split from the
-    # autograd steps before it and the statistics after it (until Adam);
-    # `adam` is the Adam kernel with the freeze, `after_adam` what follows
-    spans = (("forward", "fwd0", "fwd1"), ("forward_projection", "pf0", "pf1"),
-             ("forward_binning_tables", "bt0", "bt1"), ("forward_sort", "st0", "st1"),
-             ("loss", "fwd1", "loss1"), ("loss_kernel", "lf0", "lf1"),
-             ("loss_backward", "loss1", "k3_0"), ("loss_backward_kernel", "lb0", "lb1"),
-             ("composite", "cf0", "cf1"), ("composite_backward", "cb0", "cb1"),
-             (bwd_stage, "k3_0", "k3_1"),
-             ("K4_reduce", "k3_1", "k4_1"), ("to_projection_backward", "k4_1", "pb0"),
-             ("projection_backward", "pb0", "pb1"), ("stats", "pb1", "adam0"),
-             ("adam", "adam0", "adam1"), ("after_adam", "adam1", "end"))
-    stage_ms = {name: [] for name, _, _ in spans}
-    with marks:
-        for i in range(WARMUP + TIMED):
-            marks.events.clear()
-            state, _ = step(state, *args)
-            marks.mark("end")
-            torch.cuda.synchronize()
-            if i >= WARMUP:
-                for name, a, b in spans:
-                    stage_ms[name].append(marks.ms(a, b))
+    # --- the inputs the blend backward (K3' or K6'), K4' and the pack get in
+    # a step
+    bwd_attr = "blend_oit_bwd" if oit else "blend_bwd"
+    with StageMarks([(rc, bwd_attr), (rd, "reduce_by_gid_cuda"), (tb, "pack_instances"),
+                     (tb, "expand_instances"), (tb, "sort_instances"), (optim, "adam_rows"),
+                     (pj, "project_fwd"), (pj, "project_bwd"), (losses, "loss_fwd"),
+                     (cp, "composite_bwd")]) as marks:
+        state, _ = step(state, *args)
+        torch.cuda.synchronize()
     (k3_args, k4_args, pack_args, exp_args, sort_args, pf_args, pb_args, adam_args, lf_args,
      cb_args) = (marks.args[a] for a in (bwd_attr, "reduce_by_gid_cuda", "pack_instances",
                                          "expand_instances", "sort_instances", "project_fwd",
@@ -2714,8 +2654,8 @@ def phase_train(device, blend_mode="sorted"):
         "blend_mode": blend_mode,
         "setup_s": setup_s, "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
         "loss_first": loss[0], "loss_last": loss[-1],
-        "stage_ms_median": {k: statistics.median(v) for k, v in stage_ms.items()},
-        "device_profile": profile, "kernels_per_step": profile["kernels_per_frame"],
+        "stages": profile["stage_report"]["stages"], "device_profile": profile,
+        "kernels_per_step": profile["kernels_per_frame"],
         "launches": launches, "peak_mem_gib": peak_gib,
         "instances": int(k3_args[0].shape[1]),
     }
@@ -2785,7 +2725,7 @@ def phase_exposure_step(device):
         holder[0], _ = step(holder[0], *args)
 
     profile = device_profile(one_step)
-    with StageMarks([(cp, "composite_bwd", None, None)]) as marks:
+    with StageMarks([(cp, "composite_bwd")]) as marks:
         one_step()
     raw, mode, bg_c, exposure, gx, gy, _, w, h, *grads = marks.args["composite_bwd"]
     raw, exposure = raw.detach(), exposure.detach()
@@ -5383,12 +5323,14 @@ def main() -> int:
     cb["oit_train_frame"] = measures.pop("composite_bwd_oit_train_frame")
     cb["exposure_step"] = exposure_step["composite_bwd_with_exposure_grad"]
     emit(phase="composite", composite_fwd=cf, composite_bwd=cb,
-         frame_stage_ms={p: summary["stage_ms_median"]["composite"] for p, summary in
-                         (("render", render_summary), ("oit_render", oit_render_summary),
-                          ("train", train_summary), ("oit_train", oit_train_summary))},
-         step_backward_stage_ms={p: summary["stage_ms_median"]["composite_backward"]
-                                 for p, summary in (("train", train_summary),
-                                                    ("oit_train", oit_train_summary))},
+         frame_stage_device_ms={p: summary["stages"]["composite"]["device_ms"]
+                                for p, summary in (("render", render_summary),
+                                                   ("oit_render", oit_render_summary),
+                                                   ("train", train_summary),
+                                                   ("oit_train", oit_train_summary))},
+         step_backward_stage_device_ms={p: summary["stages"]["backward/composite"]["device_ms"]
+                                        for p, summary in (("train", train_summary),
+                                                           ("oit_train", oit_train_summary))},
          kernels_per_frame={"render": render_summary["kernels_per_frame"],
                             "oit_render": oit_render_summary["device_profile"][
                                 "kernels_per_frame"]},

@@ -14,7 +14,10 @@ entry and `rolling_chkpnt.pkl` every `--checkpoint_every` iterations.
 `--test_iterations` evaluates the test views (and five train views) at
 those iterations; the test PSNR and L1 are printed at the end.
 `--profile_steps N` writes a `torch.profiler` chrome trace of iterations 3
-to 2+N to `<model>/profile/trace.json`. The SIBR viewer is served on
+to 2+N to `<model>/profile/trace.json` and prints its stage report
+(`profiling.stage_report`: host, device and idle ms and launches per step
+of each stage, `step/prepare` to `adam`, the `instances` counter, the
+clock check). The SIBR viewer is served on
 `--ip`/`--port` unless `--disable_viewer` is given; a port that cannot be
 bound disables it and training goes on. `--debug_from` checks the loss
 every step from that iteration on; `--detect_anomaly` turns on autograd's
@@ -174,11 +177,12 @@ def main(argv=None):
 def _profile_hook(out_dir, steps, last_iteration, device):
     """An `on_iteration` hook that profiles iterations 3 to 2+`steps` (from
     the end of iteration 2 to the end of 2+`steps`, or of the run) with
-    `torch.profiler` and writes the chrome trace to `out_dir/trace.json`."""
+    `torch.profiler`, writes the chrome trace to `out_dir/trace.json` and
+    prints its stage report."""
     import torch
     from torch.profiler import profile
 
-    from gsplat_tpu_torch.profiling import activities
+    from gsplat_tpu_torch.profiling import activities, format_report, read_trace, stage_report
 
     prof = None
 
@@ -196,6 +200,7 @@ def _profile_hook(out_dir, steps, last_iteration, device):
             prof.export_chrome_trace(path)
             prof = None
             print(f"[profile] trace written to {path}")
+            print(format_report(stage_report(read_trace(path), iteration - 2)))
 
     return hook
 

@@ -16,7 +16,7 @@ more keys or a wider grid, up to 2^31 tiles):
   `compute_row_runs` (`t_lo`, `cum_run`, the trimmed flag, `tiles_post`),
   its rect row and the exclusive int64 prefix sum of `tiles_post`
   (`cum_excl`) with the total K, in one launch, bit for bit the plain twin
-  `_emission_tables_torch`; the wrapper reads K, the frame's one host
+  `_emission_tables_torch`; `pack_bins` reads K, the frame's one host
   sync (the instance buffer is sized from it).
 
 - `expand_instances`: each gaussian's `tiles_post` instance slots start at
@@ -52,7 +52,10 @@ The JAX package leaves the sort to XLA (`lax.sort`, `binning.py:758`);
 the port sorts with St'' or St' on the card. On a CPU tensor, `pack_bins` runs the
 plain twin `pack_bins_torch`, which computes the same function with tensor
 ops (`compute_row_runs` and `torch.cumsum` for the tables, `torch.sort`
-and a gather for the sort).
+and a gather for the sort). Both routes run the same stages, each a span
+while a profiler records (`profiling.span`): `bin/tables`, `bin/read_k`
+(the read of K, which the `instances` counter records), `bin/expand`,
+`bin/sort`, `bin/pack`.
 
 Deliberate difference: the instance buffer is sized for each frame from the
 prefix sum, as the CUDA reference does (`rasterize_points.cu:27-33`). So
@@ -70,6 +73,7 @@ import torch
 
 from gsplat_tpu_torch.ops.projection import ScreenGaussians
 from gsplat_tpu_torch.ops.sort import sort_instances, sort_instances_torch, sort_key_bits
+from gsplat_tpu_torch.profiling import count, span
 
 # Max rect height (in tile rows) for run-trimmed emission; taller splats fall
 # back to full-rect emission
@@ -301,11 +305,12 @@ def bin_gaussians(
 # -----------------------------------------------------------------------------
 
 
-def _emission_tables_torch(screen: ScreenGaussians, tile: int, tight_cull: bool):
+def _emission_tables_torch(screen: ScreenGaussians, tile: int, tight_cull: bool,
+                           read_total=True):
     """Plain twin of `emission_tables`: the per-gaussian emission inputs of
     the expand, rect (N, 4) int32 [rmin_x, rmin_y, rect_w, tiles_post],
     cum_excl (N,) int64, trimmed (N,) uint8, t_lo and cum_run (N, 8) int32,
-    total K."""
+    total K (with `read_total=False` a () int64 tensor)."""
     t_lo8, cum_run8, trimmed, tiles_post = compute_row_runs(screen, tile, tight_cull)
     rect_w = torch.clamp(screen.rect_max[:, 0] - screen.rect_min[:, 0], min=1)
     rect = torch.stack(
@@ -313,14 +318,14 @@ def _emission_tables_torch(screen: ScreenGaussians, tile: int, tight_cull: bool)
     ).to(torch.int32).contiguous()
     cum = torch.cumsum(tiles_post.to(torch.int64), 0)
     cum_excl = (cum - tiles_post).contiguous()
-    total = int(cum[-1]) if cum.numel() else 0
+    total = cum[-1] if cum.numel() else cum.new_zeros(())
     return (
         rect,
         cum_excl,
         trimmed.to(torch.uint8).contiguous(),
         t_lo8.to(torch.int32).contiguous(),
         cum_run8.to(torch.int32).contiguous(),
-        total,
+        int(total) if read_total else total,
     )
 
 
@@ -604,13 +609,22 @@ pack_instances.launches_bf16 = 0
 
 def _pack(screen, grid_x, grid_y, tile, tight_cull, packet_dtype, tables, expand, sort,
           pack) -> PackedBins:
+    """The binning's stages, each a span while a profiler records; K is
+    read in its own, `bin/read_k`, and counted there (`instances`)."""
     num_tiles = grid_x * grid_y
-    screen = screen.detach()
-    rect, cum_excl, trimmed, t_lo, cum_run, total = tables(screen, tile, tight_cull)
-    keys, gid, packets = expand(rect, cum_excl, trimmed, t_lo, cum_run, screen,
-                                total, grid_x, tight_cull)
-    keys_sorted, gauss_sorted = sort(keys, gid, sort_key_bits(num_tiles))
-    inst_t, tile_id, bounds = pack(keys_sorted, gauss_sorted, packets, num_tiles, packet_dtype)
+    with span("bin/tables"):
+        screen = screen.detach()
+        *emission, total = tables(screen, tile, tight_cull, read_total=False)
+    with span("bin/read_k"):
+        total = int(total.item())
+        count("instances", total)
+    with span("bin/expand"):
+        keys, gid, packets = expand(*emission, screen, total, grid_x, tight_cull)
+    with span("bin/sort"):
+        keys_sorted, gauss_sorted = sort(keys, gid, sort_key_bits(num_tiles))
+    with span("bin/pack"):
+        inst_t, tile_id, bounds = pack(keys_sorted, gauss_sorted, packets, num_tiles,
+                                       packet_dtype)
     return PackedBins(
         inst_t=inst_t,
         gauss_id=gauss_sorted,

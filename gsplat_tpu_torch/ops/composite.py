@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from gsplat_tpu_torch.ops.rasterize_torch import tiles_to_image
+from gsplat_tpu_torch.profiling import span
 
 PPT = 256  # pixels per 16x16 tile
 TILE = 16
@@ -332,9 +333,10 @@ class CompositeFunction(torch.autograd.Function):
         if d_render is None and d_invdepth is None and d_final_t is None:
             return (None, None) + none
         bwd = composite_bwd if out.is_cuda else composite_bwd_torch
-        cot, d_exposure = bwd(out, ctx.meta[0], bg, exposure, *ctx.meta[1:],
-                              d_render, d_invdepth, d_final_t,
-                              want_exposure=ctx.needs_input_grad[1])
+        with span("backward/composite"):
+            cot, d_exposure = bwd(out, ctx.meta[0], bg, exposure, *ctx.meta[1:],
+                                  d_render, d_invdepth, d_final_t,
+                                  want_exposure=ctx.needs_input_grad[1])
         return (cot if ctx.needs_input_grad[0] else None), d_exposure, *none
 
 

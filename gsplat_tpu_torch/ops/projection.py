@@ -42,6 +42,7 @@ import torch
 from gsplat_tpu_torch.core import activations as act
 from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core.types import Camera, GaussianParams, RenderSettings
+from gsplat_tpu_torch.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -749,11 +750,13 @@ class ProjectFunction(torch.autograd.Function):
         params = SimpleNamespace(xyz=xyz, scaling=scaling, rotation=rotation, opacity=opacity,
                                  features_dc=features_dc, features_rest=features_rest)
         cotangents = douts[:5]  # mean2d, conic, opacity, rgb, depth
-        if xyz.is_cuda:
-            grads = project_bwd(params, alive, ctx.camera, ctx.settings, cotangents,
-                                ctx.with_offset)
-        else:
-            grads = preprocess_bwd_torch(params, alive, ctx.camera, ctx.settings, cotangents)
+        with span("backward/project"):
+            if xyz.is_cuda:
+                grads = project_bwd(params, alive, ctx.camera, ctx.settings, cotangents,
+                                    ctx.with_offset)
+            else:
+                grads = preprocess_bwd_torch(params, alive, ctx.camera, ctx.settings,
+                                             cotangents)
         grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad[:7])]
         if not ctx.with_offset:
             grads[6] = None

@@ -61,6 +61,7 @@ from gsplat_tpu_torch.ops.rasterize_torch import (
     BlendOutput,
     tile_pixel_coords,
 )
+from gsplat_tpu_torch.profiling import span
 
 PPT = 256  # pixels per 16x16 tile
 WARPS = PPT // 32
@@ -561,10 +562,12 @@ class BlendFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
-        bwd = blend_bwd if inst_t.is_cuda else blend_bwd_packed_torch
-        dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
-        drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
+        with span("backward/blend"):
+            out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
+            bwd = blend_bwd if inst_t.is_cuda else blend_bwd_packed_torch
+            dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
+        with span("backward/reduce"):
+            drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
         return (drows[0:2].T, drows[2:5].T, drows[5], drows[6:9].T, drows[9],
                 None, None, None, None, None, None, None, None)
 
@@ -752,10 +755,12 @@ class OITBlendFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
-        bwd = blend_oit_bwd if inst_t.is_cuda else blend_oit_bwd_packed_torch
-        dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
-        drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
+        with span("backward/blend"):
+            out, inst_t, tile_start, tile_end, gauss_id = ctx.saved_tensors
+            bwd = blend_oit_bwd if inst_t.is_cuda else blend_oit_bwd_packed_torch
+            dinst = bwd(inst_t, tile_start, tile_end, *ctx.grid, out, dout.contiguous())
+        with span("backward/reduce"):
+            drows = reduce_by_gid(dinst, gauss_id, ctx.n_gauss, pack_bf16=ctx.pack_bf16)
         return (drows[0:2].T, drows[2:5].T, drows[5], drows[6:9].T, drows[9],
                 None, None, None, None, None, None, None, None)
 

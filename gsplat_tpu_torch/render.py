@@ -7,7 +7,9 @@ K6' and K4' in its backward), then `composite` (kernel Cf' forward, Cb' in
 its backward: the OIT quotient, the background term, `tiles_to_image`, the
 exposure and the clip, `ops/composite.py`), which hands the blend's
 backward its (T, 256, 8) cotangent directly. Images are HWC, as in the JAX
-package. On a CPU device the kernels' plain twins run.
+package. On a CPU device the kernels' plain twins run. While a profiler
+records, each stage is a span in its trace (`profiling.span`): `project`,
+the binning's `bin/` stages (`ops/binning.py`), `blend`, `composite`.
 
 Every `blend_mode` ("sorted", "oit") and `packet_dtype` ("float32",
 "hybrid", "bfloat16") of the JAX package renders. With hybrid and bf16
@@ -40,6 +42,7 @@ from gsplat_tpu_torch.ops.binning import pack_bins
 from gsplat_tpu_torch.ops.composite import composite
 from gsplat_tpu_torch.ops.projection import preprocess
 from gsplat_tpu_torch.ops.rasterize_cuda import blend_tiles_cuda
+from gsplat_tpu_torch.profiling import span
 
 
 def grid_dims(camera: Camera, tile: int):
@@ -82,39 +85,41 @@ def render(
       "final_t" (H, W), "radii" (N,), "visibility" (N,) bool,
       "instance_overflow", "tile_overflow" (both 0) and "num_instances".
     """
-    dev = resolve_device(device)
-    camera = camera.to(dev)
-    if params.xyz.device != dev:
-        # a view on `dev` whose gradients flow back to the caller's leaves;
-        # the module itself is not moved
-        params = SimpleNamespace(**{k: getattr(params, k).to(dev) for k in PARAM_FIELDS})
-    alive = torch.as_tensor(alive, device=dev)
-    gx, gy = grid_dims(camera, settings.tile)
-
-    screen = preprocess(
-        params, alive, camera, settings, gx, gy,
-        None if mean2d_offset is None else mean2d_offset.to(dev),
-    )
+    with span("project"):
+        dev = resolve_device(device)
+        camera = camera.to(dev)
+        if params.xyz.device != dev:
+            # a view on `dev` whose gradients flow back to the caller's leaves;
+            # the module itself is not moved
+            params = SimpleNamespace(**{k: getattr(params, k).to(dev) for k in PARAM_FIELDS})
+        alive = torch.as_tensor(alive, device=dev)
+        gx, gy = grid_dims(camera, settings.tile)
+        screen = preprocess(
+            params, alive, camera, settings, gx, gy,
+            None if mean2d_offset is None else mean2d_offset.to(dev),
+        )
+        visibility = screen.radius > 0
     bins = pack_bins(screen, gx, gy, settings.tile, settings.tight_cull,
                      packet_dtype=settings.packet_dtype)
-    raw = blend_tiles_cuda(
-        screen, bins, gx, gy, settings.tile,
-        track_contrib=settings.track_contrib, blend_mode=settings.blend_mode,
-        reduce_pack=settings.packet_dtype in ("hybrid", "bfloat16"), raw=True,
-    )
-
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    if exposure is not None:
-        exposure = torch.as_tensor(exposure, dtype=torch.float32, device=dev)
-    image, invdepth, final_t = composite(raw, settings.blend_mode, bg, exposure, gx, gy,
-                                         settings.tile, camera.width, camera.height)
+    with span("blend"):
+        raw = blend_tiles_cuda(
+            screen, bins, gx, gy, settings.tile,
+            track_contrib=settings.track_contrib, blend_mode=settings.blend_mode,
+            reduce_pack=settings.packet_dtype in ("hybrid", "bfloat16"), raw=True,
+        )
+    with span("composite"):
+        bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+        if exposure is not None:
+            exposure = torch.as_tensor(exposure, dtype=torch.float32, device=dev)
+        image, invdepth, final_t = composite(raw, settings.blend_mode, bg, exposure, gx, gy,
+                                             settings.tile, camera.width, camera.height)
 
     return {
         "render": image,
         "invdepth": invdepth,
         "final_t": final_t,
         "radii": screen.radius,
-        "visibility": screen.radius > 0,
+        "visibility": visibility,
         "instance_overflow": bins.overflow,
         "tile_overflow": 0,
         "num_instances": bins.num_instances,

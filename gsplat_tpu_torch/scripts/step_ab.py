@@ -14,7 +14,11 @@ flagship scene (1,048,576 gaussians, 2,097,152 rows in training, SH 3,
 3 profiled calls the device ms, kernels, busy share and host-to-device
 copies per call, and the launch census (`profiling.launch_census`: host
 launches and device events per call, and those of either without the
-other, by name); the peak memory of the timed calls. For the sorted step
+other, by name), and the stage table (`profiling.stage_report`: host,
+device and idle ms and launches per call of each of the program's stages,
+`outside` for what no stage holds, where a tree's program marks no stage
+all of it; the counters; the clock check); the peak memory of the timed
+calls. For the sorted step
 also the loss kernels on the step's own images (`loss_fwd`, `loss_bwd`:
 mean device ms of 20 back-to-back calls after one, CUDA events) and the
 device work between the render and the blend backward in one profiled
@@ -51,8 +55,8 @@ def own_profiling():
 
 
 def profile(fn):
-    """Device ms, kernels, busy share and host-to-device copies per call
-    over PROFILED calls (`torch.profiler`)."""
+    """Device ms, kernels, busy share, host-to-device copies and the stage
+    table per call over PROFILED calls (`torch.profiler`)."""
     from torch.autograd import DeviceType
 
     profiling = own_profiling()
@@ -64,6 +68,7 @@ def profile(fn):
     return {"device_ms": sum(r[1] for r in rows) / PROFILED,
             "kernels": sum(r[2] for r in rows) / PROFILED,
             "launch_census": profiling.launch_census(events, PROFILED),
+            "stage_report": profiling.stage_report(events, PROFILED),
             "busy_share": busy / span,
             "htod_copies": sum(r[2] for r in rows if "HtoD" in r[0]) / PROFILED}
 

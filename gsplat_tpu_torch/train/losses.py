@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gsplat_tpu_torch.profiling import span
+
 _C1 = 0.01**2
 _C2 = 0.03**2
 
@@ -292,12 +294,13 @@ class PhotometricLoss(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_loss, g_l1, g_ssim):
-        image, gt, px, py = ctx.saved_tensors
-        bwd = loss_bwd if image.is_cuda else loss_bwd_torch
-        grads = [None, None]
-        for i, (a, b, partials) in enumerate(((image, gt, px), (gt, image, py))):
-            if ctx.needs_input_grad[i]:
-                grads[i] = bwd(a, b, partials, g_loss, g_l1, g_ssim, ctx.lam, ctx.taps)
+        with span("backward/loss"):
+            image, gt, px, py = ctx.saved_tensors
+            bwd = loss_bwd if image.is_cuda else loss_bwd_torch
+            grads = [None, None]
+            for i, (a, b, partials) in enumerate(((image, gt, px), (gt, image, py))):
+                if ctx.needs_input_grad[i]:
+                    grads[i] = bwd(a, b, partials, g_loss, g_l1, g_ssim, ctx.lam, ctx.taps)
         return grads[0], grads[1], None, None, None
 
 

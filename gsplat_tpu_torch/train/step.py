@@ -12,10 +12,16 @@ densify and opacity-reset steps on its cadence.
 (capacity, ...)} in the JAX package's layout, so rows line up one for one.
 The steps are functional: they return a new state and leave the old one as
 it is. The JAX PRNG key becomes a `torch.Generator` on the state's device.
+
+While a profiler records, each stage of the train step is a span in its
+trace (`profiling.span`): `step/prepare`, the render's stages, `loss`,
+`backward` (the backward's own stages, `backward/...`, run inside it on
+autograd's device thread), `step/stats`, `adam`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from types import SimpleNamespace
@@ -25,6 +31,7 @@ import torch
 from gsplat_tpu_torch.config import OptimizationConfig
 from gsplat_tpu_torch.core.types import RenderSettings
 from gsplat_tpu_torch.model import init_exposure
+from gsplat_tpu_torch.profiling import span
 from gsplat_tpu_torch.render import render
 from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.densify import (
@@ -114,28 +121,34 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
 
     def train_step(state: TrainState, camera, gt_image, alpha_mask, invdepth_gt, depth_mask,
                    bg, xyz_lr, exposure_lr, depth_weight, exposure_index):
-        dev = state.alive.device
-        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        exposure = state.exposure.detach().requires_grad_(use_exposure)
-        mean2d_offset = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
+        with span("step/prepare"):
+            dev = state.alive.device
+            leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            exposure = state.exposure.detach().requires_grad_(use_exposure)
+            mean2d_offset = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
 
         out = render_fn(
             camera, SimpleNamespace(**leaves), state.alive, bg,
             mean2d_offset=mean2d_offset,
             exposure=exposure[exposure_index] if use_exposure else None,
         )
-        image = out["render"] * alpha_mask
-        loss, ll1 = losses.photometric_loss(image, gt_image, opt.lambda_dssim)
-        dl1 = losses.depth_l1_loss(out["invdepth"], invdepth_gt, depth_mask)
-        loss = loss + depth_weight * dl1
+        with span("loss"):
+            image = out["render"] * alpha_mask
+            loss, ll1 = losses.photometric_loss(image, gt_image, opt.lambda_dssim)
+            dl1 = losses.depth_l1_loss(out["invdepth"], invdepth_gt, depth_mask)
+            loss = loss + depth_weight * dl1
 
         wrt = [*leaves.values(), mean2d_offset] + ([exposure] if use_exposure else [])
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
-        param_grads = dict(zip(leaves, grads))
-        screen_grads = grads[len(leaves)]
+        # on the card this thread waits in `backward` while autograd's device
+        # thread runs the backward's own stages; on the CPU the engine runs
+        # them on this thread, which then has no stage of its own to wait in
+        with span("backward") if dev.type != "cpu" else contextlib.nullcontext():
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("step/stats"):
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
+            param_grads = dict(zip(leaves, grads))
+            screen_grads = grads[len(leaves)]
             # densification stats: the reference accumulates ||dL/d mean2D||
             # in its NDC-ish scaling = pixel grad * (0.5 W, 0.5 H)
             # (`backward.cu:626-627`, `gaussian_model.py:471-473`)
@@ -143,7 +156,9 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
                 screen_grads * _screen_scale(camera.width, camera.height, dev), dim=-1)
             visibility = out["visibility"]
             stats = accumulate_stats(state.stats, grad_norm, visibility, out["radii"])
+            n_visible = out.get("n_visible", visibility.sum())
 
+        with torch.no_grad(), span("adam"):
             # learning rates as floats (no copy to the device); dead rows keep
             # their parameters (their grads are zero; keep it airtight)
             lr_tree = make_lr_tree(xyz_lr, opt.feature_lr, opt.opacity_lr, opt.scaling_lr,
@@ -173,7 +188,7 @@ def make_train_step(opt: OptimizationConfig, settings: RenderSettings,
             "num_instances": out["num_instances"],
             "instance_overflow": out["instance_overflow"],
             "tile_overflow": out["tile_overflow"],
-            "n_visible": out.get("n_visible", visibility.sum()),
+            "n_visible": n_visible,
         }
         return new_state, metrics
 

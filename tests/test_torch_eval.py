@@ -112,6 +112,8 @@ def test_train_cli_checkpoints_profiles_and_resumes(small_scene, tmp_path, capsy
     assert rc == 0
     out, err = capsys.readouterr()
     assert "[viewer] disabled" in err and "test PSNR" in out
+    # the trace's stage report: two steps, each stage of the step and the counter
+    assert "2 calls;" in out and "step/prepare" in out and "counter instances:" in out
     with open(os.path.join(model, "profile", "trace.json")) as f:
         trace = json.load(f)
     names = {e.get("name") for e in trace["traceEvents"]}
